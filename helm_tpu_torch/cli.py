@@ -1,0 +1,192 @@
+"""helm-tpu-torch CLI — the reference flags, gates mode, on a torch device.
+
+Counterpart of `helm_tpu/cli.py` (`main`, `_run_boolean`): the same
+netlist / input / output / cycles flags and parameter-set selection, plus
+`--device` (default `cuda`). A missing device is an error, never a quiet
+switch to the CPU. Arithmetic mode and LUT netlists are not ported yet and
+exit with a pointer to ROADMAP.md.
+
+    python -m helm_tpu_torch.cli -v benchmarks/netlists/2-bit-adder.v \\
+        -i benchmarks/test-cases/2-bit-adder.inputs.csv -o out.csv --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+from helm_tpu import ascii_art
+from helm_tpu.circuit.verilog import read_verilog_file
+from helm_tpu.io import csv_io
+
+
+def get_input_wire_map(args) -> dict:
+    """Reference src/lib.rs:113-179 (bool inputs)."""
+    if args.input_wires_file:
+        print("[✓] Input wires were provided.")
+        return csv_io.read_input_wires(args.input_wires_file, "bool")
+    if args.input_wires:
+        print("[✓] Input wires were provided.")
+        out = {}
+        for parts in args.input_wires:
+            if len(parts) == 2:
+                out[parts[0]] = csv_io.parse_input_wire(parts[1], "bool")
+            elif len(parts) == 3:
+                width = int(parts[2])
+                bits = csv_io.hex_to_bitstring(parts[1].strip())[::-1]
+                for idx in range(width):
+                    out[f"{parts[0]}[{idx}]"] = idx < len(bits) and bits[idx] == "1"
+            else:
+                raise SystemExit("-w input should contain either two or three values")
+        return out
+    print("[!] No input wires specified, they will be initialized to false.")
+    return {"dummy": False}
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="helm-tpu-torch",
+        description="HELM-TPU, PyTorch/CUDA port: encrypted circuit evaluation "
+        "through gates, on NVIDIA GPUs",
+    )
+    ap.add_argument("-v", "--verilog", required=True, metavar="FILE")
+    ap.add_argument(
+        "-w", "--input-wires", nargs="+", action="append",
+        metavar=("STRING", "VALUE"),
+        help="Input wire values (-w wire1 value1 [width1] ...)",
+    )
+    ap.add_argument("-i", "--input-wires-file", metavar="FILE")
+    ap.add_argument("-o", "--output-wires-file", metavar="FILE")
+    ap.add_argument(
+        "-a", "--arithmetic", choices=["u8", "u16", "u32", "u64", "u128"],
+        help="arithmetic mode (not ported yet)",
+    )
+    ap.add_argument("-c", "--cycles", type=int, default=1, metavar="NUMBER")
+    ap.add_argument("-p", "--verbose", action="store_true")
+    ap.add_argument(
+        "--test-params", action="store_true",
+        help="tiny noise-free parameters (grouping 1: CPU only until the "
+        "single-bit kernel is ported)",
+    )
+    ap.add_argument("--seed", type=int, default=None, help="key RNG seed")
+    ap.add_argument(
+        "--params", metavar="NAME",
+        help="named parameter set (helm_tpu.params.ALL_PARAMS)",
+    )
+    ap.add_argument(
+        "--keys", metavar="DIR",
+        help="load client/server keys for the parameter set from DIR when "
+        "present, else generate and save them there",
+    )
+    ap.add_argument(
+        "--device", default="cuda",
+        help="torch device (default cuda; cpu runs the plain torch versions)",
+    )
+    return ap
+
+
+def _print_outputs(outputs: dict, verbose: bool) -> None:
+    for i, w in enumerate(sorted(outputs)):
+        if i > 10 and not verbose:
+            print("[!] More than ten output_wires, pass `--verbose` to see output.")
+            break
+        print(f" {w}: {outputs[w]}")
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None) -> int:
+    ascii_art.print_art()
+    args = build_argparser().parse_args(argv)
+
+    import torch
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            f"--device {args.device}: no CUDA device is available "
+            "(pass --device cpu to run the plain torch versions)"
+        )
+    if args.arithmetic:
+        raise SystemExit(
+            "arithmetic mode is not ported yet (ROADMAP.md queue 1 item 6); "
+            "use python -m helm_tpu.cli"
+        )
+    netlist = read_verilog_file(args.verilog, False)
+    if netlist.has_luts:
+        raise SystemExit(
+            "LUT netlists are not ported yet (ROADMAP.md queue 1 item 5); "
+            "use python -m helm_tpu.cli"
+        )
+    is_sequential = len(netlist.dff_outputs) > 1  # quirk kept: helm.rs:49
+    if args.cycles > 1 and not is_sequential:
+        raise SystemExit("[!] Cannot run combinational circuit for more than one cycles.")
+    return _run_gates(args, netlist, device)
+
+
+def _run_gates(args, netlist, device) -> int:
+    from helm_tpu import params as P
+
+    from .engines.boolean import BooleanEngine
+
+    print(" -- Gates mode --")
+    input_wire_map = get_input_wire_map(args)
+    start = time.time()
+    if args.params:
+        if args.params not in P.ALL_PARAMS:
+            raise SystemExit(
+                f"unknown --params {args.params!r}; "
+                f"known: {', '.join(sorted(P.ALL_PARAMS))}"
+            )
+        params = P.ALL_PARAMS[args.params]
+    elif args.test_params:
+        params = P.TEST_PARAMS
+    else:
+        params = P.DEFAULT_GATES
+    keys = None
+    if args.keys:
+        from .fhe.keys import load_or_generate
+
+        keys = load_or_generate(args.keys, params, args.seed, device)
+        print(f"[✓] Keys ({params.name}) from {args.keys}.")
+    engine = BooleanEngine(
+        mode="gates", params=params, seed=args.seed, keys=keys, device=device
+    )
+    print(f"KeyGen done in {time.time() - start} seconds.")
+    engine.compile(netlist)
+
+    start = time.time()
+    wires = engine.encrypt_inputs(input_wire_map)
+    valid = engine.init_ready() if engine.has_ready() else None
+    print(f"Encryption done in {time.time() - start} seconds.")
+
+    ready_flag = False
+    for cycle in range(args.cycles):
+        start = time.time()
+        wires = engine.evaluate(wires, verbose=args.verbose)
+        if args.cycles > 1 and engine.has_ready():
+            ready_flag = True
+            valid = engine.evaluate_ready(wires, valid)
+        _sync(device)
+        print(f"Cycle {cycle}) Evaluation done in {time.time() - start} seconds.\n")
+
+    start = time.time()
+    print("Encrypted Evaluation:")
+    if ready_flag:
+        outputs = engine.decrypt_outputs(valid, from_valid=True)
+    else:
+        outputs = engine.decrypt_outputs(wires)
+    _print_outputs(outputs, args.verbose)
+    csv_io.write_output_wires(args.output_wires_file, outputs)
+    print(f"Decryption done in {time.time() - start} seconds.")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

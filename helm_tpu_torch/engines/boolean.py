@@ -1,0 +1,281 @@
+"""Boolean engine, gates mode, on a torch device.
+
+Counterpart of `helm_tpu/engines/boolean.py`. The wire map is a word
+tensor [W, n+1] (or [B, W, n+1] for a batch of B input vectors) on the
+engine's device; every level of the shared level plan
+(`helm_tpu.circuit.plan.build_plan`) runs as: gather the slot inputs,
+per-slot linear combination, ONE batched bootstrap over all slots
+(`ops.mb_pbs.bootstrap`: the CUDA kernel on the card, the plain torch
+version on the CPU), scatter, MUX pairs, linear ops. Sequential circuits
+loop `evaluate` per cycle; the READY protocol latches outputs
+obliviously (`evaluate_ready`).
+
+The reference's TPU-only mechanics are left out: executable caching and
+AOT (`cached_jit`), the fused `lax.scan` over levels and its chunking and
+crash clamps, the interpret switch and `shard_map`. Levels run as a Python
+loop. The wire tensor is cloned once per `evaluate` call and then updated
+in place level by level (the reference donates its buffer instead).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from helm_tpu.circuit.graph import Circuit
+from helm_tpu.circuit.plan import Q8, CircuitPlan, binarize, build_plan
+from helm_tpu.circuit.verilog import Netlist
+from helm_tpu.fhe import lwe
+from helm_tpu.params import DEFAULT_GATES, Q, TfheParams, warn_if_weak
+
+from ..fhe import pbs
+from ..fhe.ntt import M32, to_host, words
+from ..fhe.server_key import gen_server_key
+from ..ops import mb_pbs
+
+_PLAN_FIELDS = (
+    "slot_in", "slot_coef", "slot_off", "slot_dst",
+    "mux_pairs", "mux_dst", "lin_src", "lin_coef", "lin_off", "lin_dst",
+)
+
+
+def _lin_ops(wires, lp):
+    """wires[.., lin_dst] = coef * wires[.., lin_src] + off (in place)."""
+    n = wires.shape[-1] - 1
+    lv = wires[..., lp["lin_src"], :] * lp["lin_coef"][:, None]
+    lv[..., n] += lp["lin_off"]
+    wires[..., lp["lin_dst"], :] = lv & M32
+
+
+def _level_step(dsk, wires, lp, testv):
+    """One PBS level (boolean.py:33 `_level_body`), updating `wires` in place."""
+    n = dsk.params.n
+    ins = wires[..., lp["slot_in"], :]  # [.., S, 3, n+1]
+    pre = (ins * lp["slot_coef"][..., None]).sum(dim=-2)
+    pre[..., n] += lp["slot_off"]
+    pre = pre & M32
+    lead = pre.shape[:-2]
+    outs = mb_pbs.bootstrap(dsk, pre.reshape(-1, n + 1), testv)
+    outs = outs.reshape(lead + (-1, n + 1))
+    wires[..., lp["slot_dst"], :] = outs
+    mval = outs[..., lp["mux_pairs"][:, 0], :] + outs[..., lp["mux_pairs"][:, 1], :]
+    mval[..., n] += Q8
+    wires[..., lp["mux_dst"], :] = mval & M32
+    _lin_ops(wires, lp)
+
+
+def _ready_step_gates(dsk, ready, new, valid, testv):
+    """valid <- mux(READY, new, valid), batched as one bootstrap launch
+    (boolean.py:212). ready: [.., n+1]; new/valid: [.., n_out, n+1]."""
+    n = dsk.params.n
+    off = (-Q8) % Q
+    pre1 = ready[..., None, :] + new
+    pre1[..., n] += off
+    pre2 = valid - ready[..., None, :]
+    pre2[..., n] += off
+    both = torch.cat([pre1, pre2], dim=-2) & M32
+    outs = mb_pbs.bootstrap(dsk, both.reshape(-1, n + 1), testv).reshape(both.shape)
+    k = new.shape[-2]
+    res = outs[..., :k, :] + outs[..., k:, :]
+    res[..., n] += Q8
+    return res & M32
+
+
+class BooleanEngine:
+    """Gates-mode encrypted circuit evaluator on a torch device."""
+
+    def __init__(
+        self,
+        mode: str = "gates",
+        params: TfheParams | None = None,
+        seed=None,
+        keys=None,
+        device="cuda",
+    ):
+        if mode == "lut":
+            raise NotImplementedError(
+                "LUT mode is not ported yet (ROADMAP.md queue 1 item 5); use "
+                "helm_tpu.engines.boolean.BooleanEngine(mode='lut')"
+            )
+        if mode != "gates":
+            raise ValueError(f"unknown mode {mode!r} (gates; lut is not ported yet)")
+        self.mode = mode
+        self.device = torch.device(device)
+        self.params = params or DEFAULT_GATES
+        warn_if_weak(self.params)
+        if keys is not None:  # preloaded (client, server) keys (fhe/keys.py)
+            self.client_key, sk = keys
+            assert self.client_key.params.name == self.params.name
+        else:
+            self.client_key = lwe.keygen(self.params, seed)
+            sk = gen_server_key(self.client_key, self.device)
+        self.dsk = pbs.DeviceServerKey.from_host(sk, self.device)
+        if self.device.type == "cuda" and self.params.grouping > 1:
+            mb_pbs.mb_server_key(self.dsk)  # lay the BSK out once, up front
+        self.plan: CircuitPlan | None = None
+        self._testv_gates = words(pbs.gates_test_poly(self.params), self.device)
+
+    # -- compilation ---------------------------------------------------
+    def compile(self, netlist: Netlist) -> None:
+        gates = binarize(netlist.gates)
+        circuit = Circuit(gates, netlist.inputs, netlist.outputs, netlist.dff_outputs)
+        circuit.sort_circuit()
+        circuit.compute_levels()
+        wire_set = set(netlist.wire_set) | {g.output for g in gates}
+        self.plan = build_plan(circuit, wire_set, self.params, self.mode)
+        dev = self.device
+
+        def t(a):
+            a = np.asarray(a)
+            # index arrays stay int64; u32 offsets become words
+            return torch.from_numpy(a.astype(np.int64)).to(dev)
+
+        self._dev_levels = [
+            {f: t(getattr(lp, f)) for f in _PLAN_FIELDS} for lp in self.plan.levels
+        ]
+
+    # -- client role ---------------------------------------------------
+    def _encrypt_host(self, input_wire_map: dict) -> np.ndarray:
+        p = self.params
+        wires = np.zeros((self.plan.num_wires, p.n + 1), dtype=np.uint32)
+        wires[:, p.n] = lwe.encode_bool(False)  # trivial encryptions of false
+        dummy = not input_wire_map or "dummy" in input_wire_map
+        dff = set(self.plan.dff_outputs)
+        for w in self.plan.input_wires:
+            if w in dff:
+                continue
+            if dummy:
+                val = False
+            elif w not in input_wire_map:
+                raise KeyError(f'Input wire "{w}" not found in input wires!')
+            else:
+                val = input_wire_map[w]
+            wires[self.plan.wire_index[w]] = lwe.encrypt(
+                self.client_key, lwe.encode_bool(bool(val))
+            )
+        for w in self.plan.dff_outputs:
+            wires[self.plan.wire_index[w]] = lwe.encrypt(
+                self.client_key, lwe.encode_bool(False)
+            )
+        return wires
+
+    def _encrypt_host_batched(self, maps: list) -> np.ndarray:
+        """All B maps' input bits in one encryption call (lwe.encrypt_many)."""
+        p = self.params
+        B, W = len(maps), self.plan.num_wires
+        arr = np.zeros((B, W, p.n + 1), dtype=np.uint32)
+        arr[:, :, p.n] = lwe.encode_bool(False)
+        dff = set(self.plan.dff_outputs)
+        idxs, mus = [], []
+        for m in maps:
+            dummy = not m or "dummy" in m
+            for w in self.plan.input_wires:
+                if w in dff:
+                    continue
+                if dummy:
+                    val = False
+                elif w not in m:
+                    raise KeyError(f'Input wire "{w}" not found in input wires!')
+                else:
+                    val = m[w]
+                idxs.append(self.plan.wire_index[w])
+                mus.append(lwe.encode_bool(bool(val)))
+            for w in self.plan.dff_outputs:
+                idxs.append(self.plan.wire_index[w])
+                mus.append(lwe.encode_bool(False))
+        if not idxs:
+            return arr
+        cts = lwe.encrypt_many(self.client_key, np.asarray(mus))
+        per = len(idxs) // B
+        for bi in range(B):
+            sl = slice(bi * per, (bi + 1) * per)
+            arr[bi, np.asarray(idxs[sl])] = cts[sl]
+        return arr
+
+    def encrypt_inputs(self, input_wire_map) -> torch.Tensor:
+        """Encrypt one input map to [W, n+1], or a list of maps to the
+        batched shape [B, W, n+1] (every level then bootstraps B*S slots)."""
+        assert self.plan is not None
+        if isinstance(input_wire_map, (list, tuple)):
+            arr = self._encrypt_host_batched(list(input_wire_map))
+        else:
+            arr = self._encrypt_host(input_wire_map)
+        return words(arr, self.device)
+
+    # -- evaluation ----------------------------------------------------
+    def evaluate(self, wires: torch.Tensor, verbose: bool = False) -> torch.Tensor:
+        assert self.plan is not None
+        wires = wires.clone()
+        total = len(self._dev_levels)
+        t0 = time.perf_counter()
+        for i, lp in enumerate(self._dev_levels):
+            if lp["slot_in"].shape[0] == 0:
+                _lin_ops(wires, lp)
+            else:
+                _level_step(self.dsk, wires, lp, self._testv_gates)
+            if verbose:
+                ns = self.plan.levels[i].num_slots
+                print(
+                    f"  Evaluated gates in level [{i + 1}/{total}]"
+                    f" ({ns} PBS slots in one launch)"
+                )
+        if verbose:
+            print(f"  {total} levels enqueued in {time.perf_counter() - t0:.3f} s")
+        return wires
+
+    def evaluate_cycles(self, wires: torch.Tensor, cycles: int) -> torch.Tensor:
+        """`cycles` sequential cycles: a loop of `evaluate` calls."""
+        for _ in range(cycles):
+            wires = self.evaluate(wires)
+        return wires
+
+    # -- READY protocol ------------------------------------------------
+    def has_ready(self) -> bool:
+        return self.plan is not None and "READY" in self.plan.wire_index
+
+    def init_ready(self, batch: int | None = None) -> torch.Tensor:
+        """Trivial-false latches for the output wires."""
+        p = self.params
+        n_out = len(self.plan.output_wires)
+        shape = (n_out, p.n + 1) if batch is None else (batch, n_out, p.n + 1)
+        valid = np.zeros(shape, dtype=np.uint32)
+        valid[..., p.n] = lwe.encode_bool(False)
+        return words(valid, self.device)
+
+    def evaluate_ready(self, wires: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        idx = torch.tensor(
+            [self.plan.wire_index[w] for w in self.plan.output_wires],
+            dtype=torch.int64, device=self.device,
+        )
+        ready = wires[..., self.plan.wire_index["READY"], :]
+        new = wires[..., idx, :]
+        return _ready_step_gates(self.dsk, ready, new, valid, self._testv_gates)
+
+    # -- decryption ----------------------------------------------------
+    def decrypt_outputs(self, wires: torch.Tensor, from_valid: bool = False):
+        host = to_host(wires)
+        if host.ndim == 3:  # batched: one dict per input vector
+            return [self._decrypt_outputs_one(h, from_valid) for h in host]
+        return self._decrypt_outputs_one(host, from_valid)
+
+    def _decrypt_outputs_one(self, host: np.ndarray, from_valid: bool) -> dict:
+        out = {}
+        for i, w in enumerate(self.plan.output_wires):
+            row = host[i] if from_valid else host[self.plan.wire_index[w]]
+            out[w] = bool(lwe.decode_bool(lwe.decrypt_phase(self.client_key, row)))
+        return out
+
+    def decrypt_all_wires(self, wires: torch.Tensor):
+        """Every wire, not just the outputs."""
+        host = to_host(wires)
+        if host.ndim == 3:
+            return [self._decrypt_all_one(h) for h in host]
+        return self._decrypt_all_one(host)
+
+    def _decrypt_all_one(self, host: np.ndarray) -> dict:
+        return {
+            w: bool(lwe.decode_bool(lwe.decrypt_phase(self.client_key, host[i])))
+            for w, i in self.plan.wire_index.items()
+        }

@@ -1,0 +1,259 @@
+"""Batched programmable bootstrapping as plain torch ops.
+
+Counterpart of `helm_tpu/fhe/pbs_jnp.py`. These are the plain versions
+of the port's kernels: `blind_rotate_multibit` is the plain version of
+the multi-bit blind-rotation kernel (`ops/mb_pbs.py`,
+`csrc/blind_rotate_mb.cu`), and the CPU path of the dispatcher. All
+arithmetic is exact, so every function returns the same words as its
+jnp twin. Words are int64 values in [0, 2^32) (`fhe/ntt.py`).
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from helm_tpu.fhe.modring import NUM_PRIMES, NttTables, get_tables, primes_for
+from helm_tpu.params import TfheParams
+from helm_tpu.fhe.server_key import ServerKey
+
+from . import ops
+from .ntt import (
+    M32,
+    _generic_modmul,
+    device_tables,
+    digits_to_residues,
+    garner_to_u32,
+    mul_shoup,
+    ntt_fwd,
+    ntt_inv,
+    reduce_small_sum,
+    sub_mod,
+)
+
+#: torch._int_mm on CUDA takes more than 16 rows and K, N multiples of 8
+_MM_MIN_ROWS = 32
+_MM_ALIGN = 8
+
+
+def decompose_glwe(p: TfheParams, x: torch.Tensor) -> torch.Tensor:
+    """Signed-decompose a GLWE batch [G, k+1, N] into gadget rows
+    [G, gadget_rows, N], c-major / level-minor (params.component_gadgets)."""
+    parts = []
+    for c, (bl, lv) in enumerate(p.component_gadgets):
+        dg = ops.signed_decompose(x[:, c], bl, lv)  # [lv, G, N]
+        parts.append(dg.permute(1, 0, 2))
+    return torch.cat(parts, dim=1)
+
+
+@dataclass(frozen=True, eq=False)
+class DeviceServerKey:
+    """Server key resident on a torch device + static metadata.
+
+    bsk_ntt / bsk_ntt_sh hold residues (< 2^17) as int32. ksk_limbs is the
+    reference's int8 limb KSK [4, rows, n+1] laid out for one GEMM: the
+    limbs side by side as column blocks [rows, 4 * cols], each block
+    padded with zero columns to a multiple of 8 (torch._int_mm on CUDA)."""
+
+    params: TfheParams
+    tab: NttTables
+    device: torch.device
+    bsk_ntt: torch.Tensor  # i32 [n/g, 2^g-1, rows, k+1, NP, N] or [n, rows, k+1, NP, N]
+    bsk_ntt_sh: torch.Tensor
+    ksk_limbs: torch.Tensor  # i8 [big_n*ks_level, 4 * pad8(n+1)]
+
+    @staticmethod
+    def from_host(sk: ServerKey, device) -> "DeviceServerKey":
+        """Carry helm_tpu's numpy ServerKey onto `device`."""
+        device = torch.device(device)
+        p = sk.params
+        ksk = np.asarray(sk.ksk_limbs)
+        cols = -(-ksk.shape[-1] // _MM_ALIGN) * _MM_ALIGN
+        if cols != ksk.shape[-1]:
+            ksk = np.concatenate(
+                [ksk, np.zeros(ksk.shape[:-1] + (cols - ksk.shape[-1],), np.int8)],
+                axis=-1,
+            )
+        ksk = np.ascontiguousarray(ksk.transpose(1, 0, 2).reshape(ksk.shape[1], -1))
+        return DeviceServerKey(
+            params=p,
+            tab=get_tables(p.N),
+            device=device,
+            bsk_ntt=torch.from_numpy(sk.bsk_ntt.astype(np.int32)).to(device),
+            bsk_ntt_sh=torch.from_numpy(sk.bsk_ntt_sh.astype(np.int32)).to(device),
+            ksk_limbs=torch.from_numpy(ksk).to(device),
+        )
+
+
+@functools.lru_cache(maxsize=None)
+def power_tables(N: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pw, ef): pw[pi, t] = psi_pi^t for t in [0, 2N), and
+    ef[f] = 2*bitrev(f) + 1, so NTT(X^a)[pi, f] = pw[pi, a*ef[f] mod 2N].
+
+    Replaces the reference's bit ladder (`pbs_jnp.monomial_tables`) with
+    one direct lookup; the values are the same."""
+    from helm_tpu.fhe.modring import _bit_reverse, root_of_unity
+
+    bits = N.bit_length() - 1
+    pw = np.zeros((NUM_PRIMES, 2 * N), np.int64)
+    for pi, p in enumerate(primes_for(N)):
+        psi = root_of_unity(p, 2 * N)
+        acc = 1
+        for t in range(2 * N):
+            pw[pi, t] = acc
+            acc = acc * psi % p
+    ef = np.array([2 * _bit_reverse(f, bits) + 1 for f in range(N)], np.int64)
+    return torch.from_numpy(pw).to(device), torch.from_numpy(ef).to(device)
+
+
+def initial_acc(p: TfheParams, lwe_in: torch.Tensor, testv: torch.Tensor):
+    """acc = X^{-bbar} * testv as a trivial GLWE: [G, k+1, N] words."""
+    n, N, k = p.n, p.N, p.k
+    G = lwe_in.shape[0]
+    bbar = ops.mod_switch(lwe_in[:, n], N)
+    neg_b = (2 * N - bbar) & (2 * N - 1)
+    body = ops.negacyclic_rotate(torch.broadcast_to(testv, (G, N)), neg_b, N)
+    zeros = torch.zeros((G, k, N), dtype=torch.int64, device=lwe_in.device)
+    return torch.cat([zeros, body[:, None, :]], dim=1)
+
+
+def blind_rotate(dsk: DeviceServerKey, lwe_in: torch.Tensor, testv: torch.Tensor):
+    """Single-bit (g=1) blind rotation (pbs_jnp.py:108). [G, n+1] -> [G, k+1, N]."""
+    p = dsk.params
+    tab = dsk.tab
+    n, N = p.n, p.N
+    rows = p.gadget_rows
+    primes_col = device_tables(N, str(lwe_in.device))["primes_col"]
+    abar = ops.mod_switch(lwe_in[:, :n], N)
+    acc = initial_acc(p, lwe_in, testv)
+    for i in range(n):
+        bsk_i = dsk.bsk_ntt[i].to(torch.int64)
+        bsk_sh_i = dsk.bsk_ntt_sh[i].to(torch.int64)
+        rot = ops.negacyclic_rotate(acc, abar[:, i, None], N)
+        diff = (rot - acc) & M32
+        d = decompose_glwe(p, diff)
+        f = ntt_fwd(digits_to_residues(d, primes_col), tab)  # [G, rows, NP, N]
+        # all (row, component) products at once: [G, rows, k+1, NP, N]
+        t = mul_shoup(f[:, :, None], bsk_i, bsk_sh_i, primes_col)
+        prod = reduce_small_sum(t.sum(dim=1), primes_col, rows + 1)
+        acc = (acc + garner_to_u32(ntt_inv(prod, tab), tab)) & M32
+    return acc
+
+
+def subset_polys(p: TfheParams, a_j: torch.Tensor) -> list:
+    """NTT-domain subset polynomials P_v = prod_{i in v} (X^{a_i} - 1),
+    v = 1 .. 2^g-1, for per-gate exponents a_j [G, g] -> [G, NP, N] each."""
+    N = p.N
+    pw, ef = power_tables(N, str(a_j.device))
+    primes_col = device_tables(N, str(a_j.device))["primes_col"]
+    d = []
+    for i in range(p.grouping):
+        e = (a_j[:, i, None] * ef[None, :]) & (2 * N - 1)  # [G, N]
+        m = pw[:, e].permute(1, 0, 2)  # [G, NP, N]
+        d.append(sub_mod(m, torch.ones_like(m), primes_col))
+    pv = [None]
+    for v in range(1, 1 << p.grouping):
+        idxs = [i for i in range(p.grouping) if (v >> i) & 1]
+        acc_p = d[idxs[0]]
+        for i in idxs[1:]:
+            acc_p = _generic_modmul(acc_p, d[i], primes_col)
+        pv.append(acc_p)
+    return pv
+
+
+def blind_rotate_multibit(
+    dsk: DeviceServerKey, lwe_in: torch.Tensor, testv: torch.Tensor
+) -> torch.Tensor:
+    """Multi-bit blind rotation (pbs_jnp.py:194), the plain version of the
+    CUDA kernel: per group, acc += INTT(sum_r NTT(dec(acc))_r (.)
+    sum_v P_v (.) BSK_v) — the additive-identity CMux. [G, n+1] -> [G, k+1, N]."""
+    p = dsk.params
+    tab = dsk.tab
+    g = p.grouping
+    n, N = p.n, p.N
+    groups = n // g
+    G = lwe_in.shape[0]
+    rows = p.gadget_rows
+    primes_col = device_tables(N, str(lwe_in.device))["primes_col"]
+    abar = ops.mod_switch(lwe_in[:, :n], N)
+    acc = initial_acc(p, lwe_in, testv)
+    a_groups = abar.reshape(G, groups, g)
+    for j in range(groups):
+        bsk_j = dsk.bsk_ntt[j].to(torch.int64)
+        bsk_sh_j = dsk.bsk_ntt_sh[j].to(torch.int64)
+        pv = subset_polys(p, a_groups[:, j])
+        # E[r, c] = sum_{v>=1} P_v (.) BSK_v[r, c] for every (row, component)
+        # at once: [G, rows, k+1, NP, N]; the empty subset is never keyed
+        e = None
+        for v in range(1, 1 << g):
+            t = mul_shoup(pv[v][:, None, None], bsk_j[v - 1], bsk_sh_j[v - 1], primes_col)
+            e = t if e is None else e + t
+        e = reduce_small_sum(e, primes_col, 1 << g)
+        f = ntt_fwd(digits_to_residues(decompose_glwe(p, acc), primes_col), tab)
+        t = _generic_modmul(f[:, :, None], e, primes_col)
+        prod = reduce_small_sum(t.sum(dim=1), primes_col, rows + 1)  # [G, k+1, NP, N]
+        # acc += dec(acc) (.) (E - GGSW(1)): the identity is handled additively
+        acc = (acc + garner_to_u32(ntt_inv(prod, tab), tab)) & M32
+    return acc
+
+
+def keyswitch(dsk: DeviceServerKey, big_lwe: torch.Tensor) -> torch.Tensor:
+    """Big-LWE [G, kN+1] -> small-LWE [G, n+1] via one int8 GEMM against
+    the four KSK limbs side by side (torch._int_mm; int32 accumulation is
+    exact: |digit| <= B/2, |limb| <= 128). Rows are padded to 32 and each
+    limb's columns to a multiple of 8 for the CUDA GEMM; the padding is
+    sliced off."""
+    p = dsk.params
+    kn = p.big_n
+    G = big_lwe.shape[0]
+    a, b = big_lwe[:, :kn], big_lwe[:, kn]
+    digits = ops.signed_decompose(a, p.ks_base_log, p.ks_level)
+    # [l, G, kN] -> [G, kN*l] with row order i*l + j (matches gen_ksk)
+    d8 = digits.permute(1, 2, 0).reshape(G, kn * p.ks_level).to(torch.int8)
+    if G <= 16:
+        d8 = torch.cat([d8, d8.new_zeros((_MM_MIN_ROWS - G, d8.shape[1]))], dim=0)
+    parts = torch._int_mm(d8, dsk.ksk_limbs)[:G].reshape(G, 4, -1)
+    acc = None
+    for limb in range(4):
+        term = (parts[:, limb, : p.n + 1].to(torch.int64) << (8 * limb)) & M32
+        acc = term if acc is None else (acc + term) & M32
+    out = (0 - acc) & M32
+    out[:, p.n] = (out[:, p.n] + b) & M32
+    return out
+
+
+def bootstrap(dsk: DeviceServerKey, lwe_in: torch.Tensor, testv: torch.Tensor):
+    """Full PBS, plain: blind rotate -> sample extract -> keyswitch."""
+    if dsk.params.grouping > 1:
+        acc = blind_rotate_multibit(dsk, lwe_in, testv)
+    else:
+        acc = blind_rotate(dsk, lwe_in, testv)
+    big = ops.sample_extract(acc, dsk.params.k, dsk.params.N)
+    return keyswitch(dsk, big)
+
+
+# ----------------------------------------------------------------------
+# Test polynomials: the reference's numpy functions (pbs_jnp.py:329-349),
+# repeated here because pbs_jnp imports JAX
+# ----------------------------------------------------------------------
+
+
+def gates_test_poly(params: TfheParams) -> np.ndarray:
+    """Constant q/8 poly: blind rotation yields +-q/8 (the sign bootstrap)."""
+    return np.full((1, params.N), np.uint32(1 << 29), dtype=np.uint32)
+
+
+def lut_test_poly(params: TfheParams, table: np.ndarray) -> np.ndarray:
+    """Programmable test poly from f-values over the padded message space."""
+    p = params
+    half_space = p.msg_space // 2
+    box = p.N // half_space
+    vals = (np.asarray(table, dtype=np.uint64) % p.msg_space) * p.delta
+    v = np.repeat(vals.astype(np.uint32), box, axis=-1)
+    h = box // 2
+    lead = v[..., h:]
+    wrap = (0 - v[..., :h].astype(np.int64)) % (1 << 32)
+    return np.concatenate([lead, wrap.astype(np.uint32)], axis=-1)
