@@ -2,31 +2,49 @@
 """Smoke run of helm_tpu_torch, the PyTorch/CUDA port, on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # every phase, on cuda:0
-    python3 chip_smoke.py --only device,build,k1
+    python3 chip_smoke.py --only device,build,k1,k2
 
 Phases, in order (each prints one line, with its seconds):
   device  the card's name and power limit (nvidia-smi), torch / CUDA versions
-  build   nvcc-builds the kernels in helm_tpu_torch/csrc
-  k1      the multi-bit blind-rotation kernel against its plain torch version
-          on the card, at TEST_PARAMS_K3, at tiny sets with N=1024, N=2048 and
-          grouping 4, and at GATES_128_K3 at the main path's widths (G=8 to
-          1024, ragged G=37 and 200): the words must be equal (tolerance 0,
-          the arithmetic is exact); prints both times
-  batch   the main path: G=1024 AND gates at GATES_128_K3 (keys seed 2024)
+  build   nvcc-builds the kernels in helm_tpu_torch/csrc, one nvcc per
+          source, all started together
+  k1      the multi-bit blind-rotation kernel (K1) against its plain torch
+          version on the card, at TEST_PARAMS_K3, at tiny sets with N=1024,
+          N=2048 and grouping 4, at GATES_128_K3 at the main path's widths
+          (G=8 to 1024, ragged G=37 and 200) and at LUT_128_K2 (k=2, N=1024,
+          9 gadget rows) at the LUT adder's level width and G=256: the words
+          must be equal (tolerance 0, the arithmetic is exact); prints both
+          times
+  k2      the single-bit blind-rotation kernel (K2) against its plain torch
+          version the same way, at TEST_PARAMS (N=64), TEST_PARAMS_LUT
+          (N=128), a tiny k=3 grouping-1 set, GATES_TPU at G=1 to 1024,
+          GATES_PARAMS (6 rows) at G=37 and LUT_PARAMS (N=2048) at the LUT
+          adder's level width and G=37 (per-gate test polynomials)
+  batch   main path: G=1024 AND gates at GATES_128_K3 (K1, keys seed 2024)
           through mb_pbs.bootstrap, decrypted against the truth table;
           bootstraps/s
-  c880    c880-like through BooleanEngine(mode="gates", device="cuda"): the
-          golden CSV and the Circuit.evaluate oracle, one vector and a batch
-          of 8; seconds per vector
-  cli     python -m helm_tpu_torch.cli on the 2-bit adder (default set,
-          --device cuda) must reproduce its golden CSV
+  c880    main path: c880-like through BooleanEngine(mode="gates") at
+          GATES_128_K3 (K1): the golden CSV and the Circuit.evaluate oracle,
+          one vector and a batch of 8; seconds per vector
+  g1      main path at GATES_TPU (K2): 2-bit-adder and s27 x 3 cycles
+          against their golden CSVs, c880-like (golden CSV + oracle, one
+          vector and a batch of 8; s/vector) and a G=1024 AND batch against
+          the truth table (bootstraps/s)
+  lut     main path: 8-bit-adder-lut-3-1 through BooleanEngine(mode="lut")
+          at LUT_PARAMS (K2) and LUT_128_K2 (K1), against its golden CSV and
+          the oracle; s/vector for each set
+  cli     python -m helm_tpu_torch.cli --device cuda (default sets) on the
+          2-bit adder and the LUT adder must reproduce their golden CSVs
   profile torch.profiler over one G=1024 bootstrap batch and one c880-like
-          vector: device time by kernel and the device's idle share
+          vector at GATES_128_K3, and one c880-like vector at GATES_TPU:
+          device time by kernel and the device's idle share
 
-The kernels' launch counters are set to 0 just before the main path (batch,
-c880) and read just after; the kernel JSON line reports those counts.
-Exits non-zero on any failure, and when no CUDA device is present. Imports
-nothing of JAX.
+The kernels' launch counters are set to 0 just before each main-path phase
+(batch, c880, g1, lut) and read just after it; the kernel JSON line reports
+the sums. A kernel's bound_ms is the larger of its integer operations over
+the card's INT32 rate and its bytes over the memory rate (int_ops and
+min_bytes below). Exits non-zero on any failure, and when no CUDA device is
+present. Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +52,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -41,7 +60,50 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "k1", "batch", "c880", "cli", "profile")
+PHASES = ("device", "build", "k1", "k2", "batch", "c880", "g1", "lut", "cli", "profile")
+MAIN_PATH = ("batch", "c880", "g1", "lut")
+KERNELS = ("blind_rotate_mb", "blind_rotate_sb")
+
+#: H100 SXM peaks used for bound_ms: 132 SMs x 64 INT32 lanes x 1.98 GHz
+#: boost (the guide's table has no INT32 row; its 67 TFLOP/s FP32 is the
+#: same 132 x 128 x 2 x 1.98 GHz count) and 3.35 TB/s of HBM3
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+HBM_BYTES_PER_S = 3.35e12
+#: integer operations per NTT butterfly (a Shoup multiply: three
+#: multiplies, a shift and a corrective subtract; a modular add and a
+#: modular subtract: an add or subtract and a corrective select each) and
+#: per multiply-add of the pointwise products
+OPS_PER_BUTTERFLY = 10
+OPS_PER_MULADD = 2
+NP = 4  # CRT primes
+
+
+def int_ops(p, G: int) -> int:
+    """Integer operations of one blind rotation of G gates at set p:
+    per step (a mask element, or a group of g of them) and gate, the
+    forward NTTs of the gadget rows and the inverse NTTs of the k+1
+    components over NP primes, the rows x (2^g-1) x (k+1) x NP x N
+    multiply-adds against the BSK and, for g > 1, the (2^g-1) x (k+1) x
+    NP x N multiply-adds by the subset polynomials."""
+    N, kp1, rows, g = p.N, p.k + 1, p.gadget_rows, p.grouping
+    bfly = (rows + kp1) * NP * (N // 2) * int(math.log2(N))
+    nv1 = (1 << g) - 1
+    muladd = rows * nv1 * kp1 * NP * N + (nv1 * kp1 * NP * N if g > 1 else 0)
+    return G * (p.n // g) * (OPS_PER_BUTTERFLY * bfly + OPS_PER_MULADD * muladd)
+
+
+def min_bytes(p, G: int, testv_rows: int) -> int:
+    """Bytes a blind rotation must move: the BSK, the LWE inputs and the
+    test polynomials read once, the accumulators written once (u32)."""
+    g = p.grouping
+    bsk = (p.n // g) * ((1 << g) - 1) * p.gadget_rows * (p.k + 1) * NP * p.N
+    return 4 * (bsk + G * (p.n + 1) + testv_rows * p.N + G * (p.k + 1) * p.N)
+
+
+def bound_ms(p, G: int, testv_rows: int) -> tuple[float, str]:
+    t_ops = int_ops(p, G) / INT32_OPS_PER_S
+    t_bytes = min_bytes(p, G, testv_rows) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def _sync():
@@ -69,7 +131,7 @@ def _ands(ck, G, seed):
     """AND gate pre-images for G random bit pairs (bench.py:298-302)."""
     import numpy as np
 
-    from helm_tpu.fhe import lwe
+    from helm_tpu_torch.fhe import lwe
 
     rng = np.random.default_rng(seed)
     b1 = rng.integers(0, 2, G).astype(bool)
@@ -81,25 +143,58 @@ def _ands(ck, G, seed):
     return lin, b1 & b2
 
 
+def _golden(name):
+    from helm_tpu_torch.io import csv_io
+
+    return csv_io.read_input_wires(os.path.join(ROOT, "benchmarks/test-cases", name), "bool")
+
+
+def _netlist(name):
+    from helm_tpu_torch.circuit.verilog import read_verilog_file
+
+    return read_verilog_file(os.path.join(ROOT, "benchmarks/netlists", name))
+
+
+def _oracle(nl, inputs, cycles=1):
+    from helm_tpu_torch.circuit.graph import Circuit
+
+    c = Circuit.from_netlist(nl)
+    st = c.initialize_wire_map(nl.wire_set, inputs)
+    for _ in range(cycles):
+        st = c.evaluate(st)
+    return {w: bool(st[w]) for w in nl.outputs}
+
+
+def _same(out, exp):
+    """Engine outputs (bool in gates mode, 0/1 in LUT mode) == expected bits."""
+    return {w: bool(v) for w, v in out.items()} == {w: bool(v) for w, v in exp.items()}
+
+
 class Smoke:
     def __init__(self, device: str):
         self.device = device
         self.keys = {}
         self.kernel = {
-            "name": "blind_rotate_mb",
-            "route": "cuda",
-            "source": "helm_tpu_torch/csrc/blind_rotate_mb.cu",
-            "replaces": "helm_tpu/ops/mxu_pbs.py:2706",
-            "launches": None,
-            "max_abs_err": None,
-            "ms": None,
-            "plain_ms": None,
+            "blind_rotate_mb": {
+                "name": "blind_rotate_mb",
+                "route": "cuda",
+                "source": "helm_tpu_torch/csrc/blind_rotate_mb.cu",
+                "replaces": "helm_tpu/ops/mxu_pbs.py:2706",
+            },
+            "blind_rotate_sb": {
+                "name": "blind_rotate_sb",
+                "route": "cuda",
+                "source": "helm_tpu_torch/csrc/blind_rotate_sb.cu",
+                "replaces": "helm_tpu/ops/mxu_pbs.py:1652",
+            },
         }
+        for k in self.kernel.values():
+            k.update(launches=0, max_abs_err=None, ms=None, plain_ms=None,
+                     bound_ms=None, bound_by=None, library_ms=None)
         self.card = ""
 
     def keys_for(self, params, seed):
-        from helm_tpu.fhe import lwe
-        from helm_tpu_torch.fhe import pbs
+        from helm_tpu_torch.fhe import lwe, pbs
         from helm_tpu_torch.fhe.server_key import gen_server_key
 
         if params.name not in self.keys:
@@ -129,113 +224,146 @@ class Smoke:
     def phase_build(self):
         from helm_tpu_torch.ops import build
 
-        build.load("blind_rotate_mb")
-        return f"helm_tpu_torch/csrc/blind_rotate_mb.cu -> {build.BUILD_DIR.name}/"
+        build.load_all(KERNELS)
+        return f"helm_tpu_torch/csrc/{{{','.join(KERNELS)}}}.cu -> {build.BUILD_DIR.name}/"
 
-    def phase_k1(self):
+    def _check_kernel(self, name, label, plain, kernel, cases, timed):
+        """Hold `kernel` against `plain` word for word on every case
+        (params, seed, G, per-gate testv); record the timed case's numbers."""
         import numpy as np
 
-        from helm_tpu import params as P
         from helm_tpu_torch.fhe import pbs
         from helm_tpu_torch.fhe.ntt import words
-        from helm_tpu_torch.ops import mb_pbs
 
         worst = 0
         notes = []
-        # tiny sets at larger rings: N=1024 / 2048 take the kernel's 64-bit
-        # accumulation path (PRIMES_1024, PRIMES with 65537), as does
-        # grouping 4 (15 subsets); the main path's sets take the 32-bit one
-        wide = (
-            dataclasses.replace(P.TEST_PARAMS_K3, name="test_tiny_k3_n1024", N=1024),
-            dataclasses.replace(P.TEST_PARAMS_MB, name="test_tiny_mb2_n2048", N=2048),
-            P.TEST_PARAMS_MB4,
-        )
-        # GATES_128_K3 at the main path's widths: c880-like levels are 8, 16
-        # or 32 slots for one vector and 64-256 for a batch of 8, the AND
-        # batch is 1024; 37 and 200 are ragged against the gate chunks
-        for params, seed, gs in (
-            (P.TEST_PARAMS_K3, 7, (5, 37)),
-            *((w, 9, (5,)) for w in wide),
-            (P.GATES_128_K3, 2024, (8, 16, 32, 37, 64, 128, 200, 256, 1024)),
-        ):
+        for params, seed, gs, per_gate in cases:
             ck, _, dsk = self.keys_for(params, seed)
             for G in gs:
                 lin, _ = _ands(ck, G, 100 + G)
                 x = words(lin, self.device)
-                tv = words(pbs.gates_test_poly(params), self.device)
-                plain_ms, ref = _time_ms(lambda: pbs.blind_rotate_multibit(dsk, x, tv), warm=False)
-                ms, got = _time_ms(lambda: mb_pbs.blind_rotate_mb(dsk, x, tv), reps=3)
+                if per_gate:
+                    rng = np.random.default_rng(G)
+                    tv = words(rng.integers(0, 1 << 32, size=(G, params.N), dtype=np.uint64)
+                               .astype(np.uint32), self.device)
+                else:
+                    tv = words(pbs.gates_test_poly(params), self.device)
+                plain_ms, ref = _time_ms(lambda: plain(dsk, x, tv), warm=False)
+                ms, got = _time_ms(lambda: kernel(dsk, x, tv), reps=3)
                 err = int((got - ref).abs().max().item())
                 worst = max(worst, err)
                 if not bool((got == ref).all()):
                     bad = int(np.flatnonzero((got != ref).cpu().numpy().ravel())[0])
                     raise AssertionError(
-                        f"K1 != plain at {params.name} G={G}: first differing word "
+                        f"{label} != plain at {params.name} G={G}: first differing word "
                         f"{bad}: {int(got.reshape(-1)[bad])} vs {int(ref.reshape(-1)[bad])}"
                     )
-                notes.append(f"{params.name} G={G}: {ms:.3f} ms vs plain {plain_ms:.3f} ms")
-                print(f"[k1] {notes[-1]} — equal (tolerance 0)", flush=True)
-                if params is P.GATES_128_K3 and G == 1024:
-                    self.kernel["ms"] = round(ms, 4)
-                    self.kernel["plain_ms"] = round(plain_ms, 4)
-        self.kernel["max_abs_err"] = worst
-        return "K1 == plain on every shape; " + "; ".join(notes)
+                b_ms, b_by = bound_ms(params, G, tv.shape[0])
+                notes.append(
+                    f"{params.name} G={G}: {ms:.6f} ms vs plain {plain_ms:.6f} ms, "
+                    f"bound {b_ms:.6f} ms ({b_by})"
+                )
+                print(f"[{label.lower()}] {notes[-1]} — equal (tolerance 0)", flush=True)
+                if (params.name, G) == timed:
+                    self.kernel[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        self.kernel[name]["max_abs_err"] = worst
+        assert self.kernel[name]["ms"] is not None, f"{label}: timed shape {timed} not run"
+        return f"{label} == plain on every shape; " + "; ".join(notes)
 
-    def phase_batch(self, iters: int = 5):
+    def phase_k1(self):
+        from helm_tpu_torch import params as P
+        from helm_tpu_torch.fhe import pbs
+        from helm_tpu_torch.ops import mb_pbs
+
+        # tiny sets at larger rings: N=1024 / 2048 take the kernel's 64-bit
+        # accumulation path (PRIMES_1024, PRIMES with 65537), as does
+        # grouping 4 (15 subsets); GATES_128_K3 takes the 32-bit one.
+        # GATES_128_K3 at the main path's widths: c880-like levels are 8, 16
+        # or 32 slots for one vector and 64-256 for a batch of 8, the AND
+        # batch is 1024; 37 and 200 are ragged against the gate chunks.
+        # LUT_128_K2 (k=2, 9 rows, N=1024): the LUT adder's levels are 2
+        # slots wide, each with its own test polynomial
+        wide = (
+            dataclasses.replace(P.TEST_PARAMS_K3, name="test_tiny_k3_n1024", N=1024),
+            dataclasses.replace(P.TEST_PARAMS_MB, name="test_tiny_mb2_n2048", N=2048),
+            P.TEST_PARAMS_MB4,
+        )
+        cases = (
+            (P.TEST_PARAMS_K3, 7, (5, 37), False),
+            *((w, 9, (5,), False) for w in wide),
+            (P.GATES_128_K3, 2024, (8, 16, 32, 37, 64, 128, 200, 256, 1024), False),
+            (P.LUT_128_K2, 2025, (2, 256), True),
+        )
+        return self._check_kernel(
+            "blind_rotate_mb", "K1", pbs.blind_rotate_multibit, mb_pbs.blind_rotate_mb,
+            cases, ("gates_128_k3", 1024),
+        )
+
+    def phase_k2(self):
+        from helm_tpu_torch import params as P
+        from helm_tpu_torch.fhe import pbs
+        from helm_tpu_torch.ops import sb_pbs
+
+        # TEST_PARAMS / TEST_PARAMS_LUT / the k=3 set take the 32-bit
+        # accumulation path (PRIMES_512); GATES_TPU and GATES_PARAMS
+        # (N=1024, PRIMES_1024) and LUT_PARAMS (N=2048, PRIMES) the 64-bit
+        # one. LUT_PARAMS' 6 rows x 2048 words fill 48 KB of shared memory.
+        # GATES_TPU at every width phase g1 gives K2: 1-4 slots (2-bit
+        # adder, s27), 8-32 (c880-like), 64-256 (c880-like, 8 vectors),
+        # 1024 (the AND batch); 37 is ragged. The LUT adder's levels are 2
+        # slots wide
+        k3_g1 = dataclasses.replace(P.TEST_PARAMS_K3, name="test_tiny_k3_g1", grouping=1)
+        cases = (
+            (P.TEST_PARAMS, 11, (5, 37), False),
+            (P.TEST_PARAMS_LUT, 12, (5,), True),
+            (k3_g1, 13, (5,), False),
+            (P.GATES_TPU, 2026, (1, 2, 4, 8, 16, 32, 37, 64, 128, 256, 1024), False),
+            (P.GATES_PARAMS, 2027, (37,), False),
+            (P.LUT_PARAMS, 2028, (2, 37), True),
+        )
+        return self._check_kernel(
+            "blind_rotate_sb", "K2", pbs.blind_rotate, sb_pbs.blind_rotate_sb,
+            cases, ("gates_tpu_v32", 1024),
+        )
+
+    def _and_batch(self, p, seed, iters=5):
         import torch
 
-        from helm_tpu import params as P
-        from helm_tpu.fhe import lwe
-        from helm_tpu_torch.fhe import pbs
+        from helm_tpu_torch.fhe import lwe, pbs
         from helm_tpu_torch.fhe.ntt import to_host, words
         from helm_tpu_torch.ops import mb_pbs
 
-        p = P.GATES_128_K3
-        ck, _, dsk = self.keys_for(p, 2024)
+        ck, _, dsk = self.keys_for(p, seed)
         G = 1024
         lin, exp = _ands(ck, G, 0)
         x = words(lin, self.device)
         tv = words(pbs.gates_test_poly(p), self.device)
-        before = mb_pbs.blind_rotate_mb.launches
         out = mb_pbs.bootstrap(dsk, x, tv)
-        assert mb_pbs.blind_rotate_mb.launches > before, "the batch did not launch K1"
         got = lwe.decode_bool(lwe.decrypt_phase(ck, to_host(out)))
-        assert (got == exp).all(), "G=1024 AND batch decrypts wrong"
+        assert (got == exp).all(), f"{p.name} G=1024 AND batch decrypts wrong"
         _sync()
         t0 = time.perf_counter()
         for _ in range(iters):
             out = mb_pbs.bootstrap(dsk, x, tv)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        return f"GATES_128_K3 G={G} AND truth table ok; {G * iters / dt:.2f} bootstraps/s over {iters} batches"
+        return f"{p.name} G={G} AND truth table ok; {G * iters / dt:.2f} bootstraps/s over {iters} batches"
 
-    def phase_c880(self):
+    def phase_batch(self):
+        from helm_tpu_torch import params as P
+
+        return self._and_batch(P.GATES_128_K3, 2024)
+
+    def _c880(self, p, seed):
         import numpy as np
 
-        from helm_tpu import params as P
-        from helm_tpu.circuit.graph import Circuit
-        from helm_tpu.circuit.verilog import read_verilog_file
-        from helm_tpu.io import csv_io
         from helm_tpu_torch import BooleanEngine
 
-        p = P.GATES_128_K3
-        ck, sk, _ = self.keys_for(p, 2024)
-        path = os.path.join(ROOT, "benchmarks/netlists/c880-like.v")
-        nl = read_verilog_file(path)
+        ck, sk, _ = self.keys_for(p, seed)
+        nl = _netlist("c880-like.v")
         eng = BooleanEngine(mode="gates", params=p, keys=(ck, sk), device=self.device)
         eng.compile(nl)
-        inputs = csv_io.read_input_wires(
-            os.path.join(ROOT, "benchmarks/test-cases/c880-like.inputs.csv"), "bool"
-        )
-        golden = csv_io.read_input_wires(
-            os.path.join(ROOT, "benchmarks/test-cases/c880-like.outputs.csv"), "bool"
-        )
-        c = Circuit.from_netlist(read_verilog_file(path))
-
-        def oracle(m):
-            st = c.evaluate(c.initialize_wire_map(nl.wire_set, m))
-            return {w: bool(st[w]) for w in nl.outputs}
-
+        inputs = _golden("c880-like.inputs.csv")
         times = []
         for _ in range(3):
             wires = eng.encrypt_inputs(inputs)
@@ -245,8 +373,8 @@ class Smoke:
             _sync()
             times.append(time.perf_counter() - t0)
         got = eng.decrypt_outputs(wires)
-        assert got == golden, "c880-like outputs differ from the golden CSV"
-        assert got == oracle(inputs), "c880-like outputs differ from the oracle"
+        assert got == _golden("c880-like.outputs.csv"), f"{p.name}: c880-like differs from the golden CSV"
+        assert got == _oracle(nl, inputs), f"{p.name}: c880-like differs from the oracle"
         rng = np.random.default_rng(8)
         vecs = [{w: bool(rng.integers(0, 2)) for w in sorted(nl.inputs)} for _ in range(8)]
         wires = eng.encrypt_inputs(vecs)
@@ -255,40 +383,104 @@ class Smoke:
         wires = eng.evaluate(wires)
         _sync()
         tb = time.perf_counter() - t0
-        outs = eng.decrypt_outputs(wires)
-        for i, (m, o) in enumerate(zip(vecs, outs)):
-            assert o == oracle(m), f"c880-like batch vector {i} differs from the oracle"
+        for i, (m, o) in enumerate(zip(vecs, eng.decrypt_outputs(wires))):
+            assert o == _oracle(nl, m), f"{p.name}: c880-like batch vector {i} differs from the oracle"
         return (
-            f"golden CSV + oracle ok; {float(np.median(times)):.4f} s/vector "
-            f"(median of {[round(t, 4) for t in times]}); batch of 8 ok, "
-            f"{tb / 8:.4f} s/vector"
+            f"{p.name} c880-like golden CSV + oracle ok; {float(np.median(times)):.6f} s/vector "
+            f"(median of {[round(t, 6) for t in times]}); batch of 8 ok, {tb / 8:.6f} s/vector"
         )
+
+    def phase_c880(self):
+        from helm_tpu_torch import params as P
+
+        return self._c880(P.GATES_128_K3, 2024)
+
+    def phase_g1(self):
+        from helm_tpu_torch import BooleanEngine
+        from helm_tpu_torch import params as P
+
+        p = P.GATES_TPU
+        ck, sk, _ = self.keys_for(p, 2026)
+        notes = []
+        for net, cycles, golden in (
+            ("2-bit-adder", 1, "2-bit-adder.outputs.csv"),
+            ("s27", 3, "s27_3cycles.outputs.csv"),
+        ):
+            nl = _netlist(f"{net}.v")
+            eng = BooleanEngine(mode="gates", params=p, keys=(ck, sk), device=self.device)
+            eng.compile(nl)
+            inputs = _golden(f"{net}.inputs.csv")
+            _sync()
+            t0 = time.perf_counter()
+            wires = eng.evaluate_cycles(eng.encrypt_inputs(inputs), cycles)
+            got = eng.decrypt_outputs(wires)
+            dt = time.perf_counter() - t0
+            assert got == _golden(golden), f"{net} x{cycles} at {p.name} differs from {golden}"
+            assert got == _oracle(nl, inputs, cycles), f"{net} x{cycles} differs from the oracle"
+            notes.append(f"{net} x{cycles} golden CSV + oracle ok ({dt:.6f} s)")
+        notes.append(self._c880(p, 2026))
+        notes.append(self._and_batch(p, 2026))
+        return "; ".join(notes)
+
+    def phase_lut(self):
+        import numpy as np
+
+        from helm_tpu_torch import BooleanEngine
+        from helm_tpu_torch import params as P
+
+        nl = _netlist("8-bit-adder-lut-3-1.v")
+        inputs = _golden("8-bit-adder.inputs.csv")
+        golden = _golden("8-bit-adder-lut-3-1.outputs.csv")
+        exp = _oracle(nl, inputs)
+        notes = []
+        for p, seed in ((P.LUT_PARAMS, 2028), (P.LUT_128_K2, 2025)):
+            ck, sk, _ = self.keys_for(p, seed)
+            eng = BooleanEngine(mode="lut", params=p, keys=(ck, sk), device=self.device)
+            eng.compile(nl)
+            times = []
+            for _ in range(3):
+                wires = eng.encrypt_inputs(inputs)
+                _sync()
+                t0 = time.perf_counter()
+                wires = eng.evaluate(wires)
+                _sync()
+                times.append(time.perf_counter() - t0)
+            got = eng.decrypt_outputs(wires)
+            assert _same(got, golden), f"LUT adder at {p.name} differs from the golden CSV: {got}"
+            assert _same(got, exp), f"LUT adder at {p.name} differs from the oracle"
+            notes.append(
+                f"{p.name} (grouping {p.grouping}) golden CSV + oracle ok; "
+                f"{float(np.median(times)):.6f} s/vector (median of {[round(t, 6) for t in times]})"
+            )
+        return "8-bit-adder-lut-3-1: " + "; ".join(notes)
 
     def phase_profile(self):
         import torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        from helm_tpu import params as P
-        from helm_tpu.circuit.verilog import read_verilog_file
-        from helm_tpu.io import csv_io
         from helm_tpu_torch import BooleanEngine
+        from helm_tpu_torch import params as P
         from helm_tpu_torch.fhe import pbs
         from helm_tpu_torch.fhe.ntt import words
         from helm_tpu_torch.ops import mb_pbs
 
+        def c880_vector(p, seed):
+            ck, sk, _ = self.keys_for(p, seed)
+            eng = BooleanEngine(mode="gates", params=p, keys=(ck, sk), device=self.device)
+            eng.compile(_netlist("c880-like.v"))
+            vec = eng.encrypt_inputs(_golden("c880-like.inputs.csv"))
+            return lambda: eng.evaluate(vec)
+
         p = P.GATES_128_K3
-        ck, sk, dsk = self.keys_for(p, 2024)
+        ck, _, dsk = self.keys_for(p, 2024)
         lin, _ = _ands(ck, 1024, 0)
         x = words(lin, self.device)
         tv = words(pbs.gates_test_poly(p), self.device)
-        eng = BooleanEngine(mode="gates", params=p, keys=(ck, sk), device=self.device)
-        eng.compile(read_verilog_file(os.path.join(ROOT, "benchmarks/netlists/c880-like.v")))
-        vec = eng.encrypt_inputs(csv_io.read_input_wires(
-            os.path.join(ROOT, "benchmarks/test-cases/c880-like.inputs.csv"), "bool"))
         runs = {
-            "batch1024": lambda: mb_pbs.bootstrap(dsk, x, tv),
-            "c880_vector": lambda: eng.evaluate(vec),
+            "gates_128_k3 batch1024": lambda: mb_pbs.bootstrap(dsk, x, tv),
+            "gates_128_k3 c880_vector": c880_vector(p, 2024),
+            "gates_tpu_v32 c880_vector": c880_vector(P.GATES_TPU, 2026),
         }
         notes = []
         for name, fn in runs.items():
@@ -317,27 +509,33 @@ class Smoke:
         return f"{len(notes)} windows profiled"
 
     def phase_cli(self):
-        from helm_tpu.io import csv_io
+        from helm_tpu_torch.io import csv_io
 
-        with tempfile.TemporaryDirectory() as td:
-            out = os.path.join(td, "out.csv")
-            res = subprocess.run(
-                [
-                    sys.executable, "-m", "helm_tpu_torch.cli",
-                    "-v", "benchmarks/netlists/2-bit-adder.v",
-                    "-i", "benchmarks/test-cases/2-bit-adder.inputs.csv",
-                    "-o", out, "--device", self.device,
-                ],
-                cwd=ROOT, capture_output=True, text=True, timeout=600,
-            )
-            if res.returncode != 0:
-                raise AssertionError(f"CLI failed ({res.returncode}):\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
-            got = csv_io.read_input_wires(out, "bool")
-        exp = csv_io.read_input_wires(
-            os.path.join(ROOT, "benchmarks/test-cases/2-bit-adder.outputs.csv"), "bool"
-        )
-        assert got == exp, f"CLI outputs {got} != golden {exp}"
-        return "2-bit-adder --device cuda reproduces 2-bit-adder.outputs.csv"
+        notes = []
+        for net, inputs, golden in (
+            ("2-bit-adder", "2-bit-adder.inputs.csv", "2-bit-adder.outputs.csv"),
+            ("8-bit-adder-lut-3-1", "8-bit-adder.inputs.csv", "8-bit-adder-lut-3-1.outputs.csv"),
+        ):
+            with tempfile.TemporaryDirectory() as td:
+                out = os.path.join(td, "out.csv")
+                res = subprocess.run(
+                    [
+                        sys.executable, "-m", "helm_tpu_torch.cli",
+                        "-v", f"benchmarks/netlists/{net}.v",
+                        "-i", f"benchmarks/test-cases/{inputs}",
+                        "-o", out, "--device", self.device,
+                    ],
+                    cwd=ROOT, capture_output=True, text=True, timeout=600,
+                )
+                if res.returncode != 0:
+                    raise AssertionError(
+                        f"CLI failed on {net} ({res.returncode}):\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}"
+                    )
+                got = csv_io.read_input_wires(out, "bool")
+            exp = _golden(golden)
+            assert got == exp, f"CLI outputs on {net} {got} != golden {exp}"
+            notes.append(f"{net} --device cuda reproduces {golden}")
+        return "; ".join(notes)
 
 
 def main(argv=None) -> int:
@@ -357,21 +555,29 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
     smoke = Smoke("cuda")
-    from helm_tpu_torch.ops import mb_pbs
+    from helm_tpu_torch.ops import mb_pbs, sb_pbs
 
-    main_path = [x for x in ("batch", "c880") if x in only]
+    wrappers = {"blind_rotate_mb": mb_pbs.blind_rotate_mb, "blind_rotate_sb": sb_pbs.blind_rotate_sb}
+    #: the kernels each main-path phase must launch
+    expect = {"batch": ("blind_rotate_mb",), "c880": ("blind_rotate_mb",),
+              "g1": ("blind_rotate_sb",), "lut": KERNELS}
     for name in PHASES:
         if name not in only:
             continue
-        if main_path and name == main_path[0]:
-            mb_pbs.blind_rotate_mb.launches = 0  # the main path's run starts here
+        if name in MAIN_PATH:
+            for w in wrappers.values():
+                w.launches = 0  # this main-path phase's run starts here
         t0 = time.perf_counter()
         msg = getattr(smoke, f"phase_{name}")()
+        if name in MAIN_PATH:
+            counts = {k: w.launches for k, w in wrappers.items()}
+            for k in expect[name]:
+                assert counts[k] > 0, f"main-path phase {name} never launched {k}"
+            for k, c in counts.items():
+                smoke.kernel[k]["launches"] += c
+            msg += f"; launches {counts}"
         print(f"[{name}] {msg} ({time.perf_counter() - t0:.2f} s)", flush=True)
-        if main_path and name == main_path[-1]:
-            smoke.kernel["launches"] = mb_pbs.blind_rotate_mb.launches
-            assert smoke.kernel["launches"] > 0, "the main path never launched K1"
-    print(json.dumps({"kernels": [smoke.kernel]}))
+    print(json.dumps({"kernels": list(smoke.kernel.values())}))
     if smoke.card:
         print(smoke.card)
     print(json.dumps({

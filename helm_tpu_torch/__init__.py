@@ -1,20 +1,21 @@
 """helm_tpu_torch — the PyTorch / CUDA port of helm_tpu, for NVIDIA Hopper.
 
 Counterpart of `helm_tpu/__init__.py`. The JAX package stays the
-reference; this package reuses its numpy-only modules (parameter sets,
-client keys, netlist front end, level planner, CSV I/O) and replaces the
-JAX pipeline and the Pallas kernels with torch ops and hand-written CUDA.
-It imports `torch` and never `jax`.
+reference. This package keeps its own copies of the reference's numpy
+modules (parameter sets, client keys, netlist front end, level planner,
+CSV I/O) and replaces the JAX pipeline and the Pallas kernels with torch
+ops and hand-written CUDA. It imports `torch`, and nothing of `jax` or of
+`helm_tpu` (tests/test_torch_isolation.py).
 
 Top-level API (lazy imports — `import helm_tpu_torch` stays cheap):
 
     helm_tpu_torch.read_verilog_file(path, is_arith)   netlist frontend
     helm_tpu_torch.Circuit                             scheduler + plaintext oracle
-    helm_tpu_torch.BooleanEngine                       gates mode on a torch device
+    helm_tpu_torch.BooleanEngine                       gates and LUT modes on a torch device
     helm_tpu_torch.params                              parameter sets (ALL_PARAMS)
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 __all__ = [
     "BooleanEngine",
@@ -30,15 +31,15 @@ def __getattr__(name):
 
         return BooleanEngine
     if name == "Circuit":
-        from helm_tpu.circuit.graph import Circuit
+        from .circuit.graph import Circuit
 
         return Circuit
     if name == "read_verilog_file":
-        from helm_tpu.circuit.verilog import read_verilog_file
+        from .circuit.verilog import read_verilog_file
 
         return read_verilog_file
     if name == "params":
         import importlib
 
-        return importlib.import_module("helm_tpu.params")
+        return importlib.import_module(".params", __name__)
     raise AttributeError(f"module 'helm_tpu_torch' has no attribute {name!r}")

@@ -1,13 +1,18 @@
-"""helm-tpu-torch CLI — the reference flags, gates mode, on a torch device.
+"""helm-tpu-torch CLI — the reference flags, gates and LUT modes, on a
+torch device.
 
 Counterpart of `helm_tpu/cli.py` (`main`, `_run_boolean`): the same
 netlist / input / output / cycles flags and parameter-set selection, plus
-`--device` (default `cuda`). A missing device is an error, never a quiet
-switch to the CPU. Arithmetic mode and LUT netlists are not ported yet and
-exit with a pointer to ROADMAP.md.
+`--device` (default `cuda`). A netlist with `lut` cells runs in LUT mode
+(default set DEFAULT_LUT, `--test-params` TEST_PARAMS_LUT), any other in
+gates mode (DEFAULT_GATES, TEST_PARAMS). A missing device is an error,
+never a quiet switch to the CPU. Arithmetic mode is not ported yet and
+exits with a pointer to ROADMAP.md.
 
     python -m helm_tpu_torch.cli -v benchmarks/netlists/2-bit-adder.v \\
         -i benchmarks/test-cases/2-bit-adder.inputs.csv -o out.csv --device cuda
+    python -m helm_tpu_torch.cli -v benchmarks/netlists/8-bit-adder-lut-3-1.v \\
+        -i benchmarks/test-cases/8-bit-adder.inputs.csv --device cuda
 """
 
 from __future__ import annotations
@@ -16,9 +21,9 @@ import argparse
 import sys
 import time
 
-from helm_tpu import ascii_art
-from helm_tpu.circuit.verilog import read_verilog_file
-from helm_tpu.io import csv_io
+from . import ascii_art
+from .circuit.verilog import read_verilog_file
+from .io import csv_io
 
 
 def get_input_wire_map(args) -> dict:
@@ -48,7 +53,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="helm-tpu-torch",
         description="HELM-TPU, PyTorch/CUDA port: encrypted circuit evaluation "
-        "through gates, on NVIDIA GPUs",
+        "through gates and lookups, on NVIDIA GPUs",
     )
     ap.add_argument("-v", "--verilog", required=True, metavar="FILE")
     ap.add_argument(
@@ -66,13 +71,14 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("-p", "--verbose", action="store_true")
     ap.add_argument(
         "--test-params", action="store_true",
-        help="tiny noise-free parameters (grouping 1: CPU only until the "
-        "single-bit kernel is ported)",
+        help="tiny noise-free parameters (test_tiny, or test_tiny_lut for "
+        "LUT netlists)",
     )
     ap.add_argument("--seed", type=int, default=None, help="key RNG seed")
     ap.add_argument(
         "--params", metavar="NAME",
-        help="named parameter set (helm_tpu.params.ALL_PARAMS)",
+        help="named parameter set (helm_tpu_torch.params.ALL_PARAMS), e.g. "
+        "gates_tpu_v32 (single-bit) or gates_128_k3 (multi-bit)",
     )
     ap.add_argument(
         "--keys", metavar="DIR",
@@ -119,23 +125,18 @@ def main(argv=None) -> int:
             "use python -m helm_tpu.cli"
         )
     netlist = read_verilog_file(args.verilog, False)
-    if netlist.has_luts:
-        raise SystemExit(
-            "LUT netlists are not ported yet (ROADMAP.md queue 1 item 5); "
-            "use python -m helm_tpu.cli"
-        )
     is_sequential = len(netlist.dff_outputs) > 1  # quirk kept: helm.rs:49
     if args.cycles > 1 and not is_sequential:
         raise SystemExit("[!] Cannot run combinational circuit for more than one cycles.")
-    return _run_gates(args, netlist, device)
+    return _run_boolean(args, netlist, device)
 
 
-def _run_gates(args, netlist, device) -> int:
-    from helm_tpu import params as P
-
+def _run_boolean(args, netlist, device) -> int:
+    from . import params as P
     from .engines.boolean import BooleanEngine
 
-    print(" -- Gates mode --")
+    mode = "lut" if netlist.has_luts else "gates"
+    print(f" -- {'LUTs' if mode == 'lut' else 'Gates'} mode --")
     input_wire_map = get_input_wire_map(args)
     start = time.time()
     if args.params:
@@ -146,9 +147,9 @@ def _run_gates(args, netlist, device) -> int:
             )
         params = P.ALL_PARAMS[args.params]
     elif args.test_params:
-        params = P.TEST_PARAMS
+        params = P.TEST_PARAMS if mode == "gates" else P.TEST_PARAMS_LUT
     else:
-        params = P.DEFAULT_GATES
+        params = P.DEFAULT_GATES if mode == "gates" else P.DEFAULT_LUT
     keys = None
     if args.keys:
         from .fhe.keys import load_or_generate
@@ -156,7 +157,7 @@ def _run_gates(args, netlist, device) -> int:
         keys = load_or_generate(args.keys, params, args.seed, device)
         print(f"[✓] Keys ({params.name}) from {args.keys}.")
     engine = BooleanEngine(
-        mode="gates", params=params, seed=args.seed, keys=keys, device=device
+        mode=mode, params=params, seed=args.seed, keys=keys, device=device
     )
     print(f"KeyGen done in {time.time() - start} seconds.")
     engine.compile(netlist)

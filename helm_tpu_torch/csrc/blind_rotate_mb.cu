@@ -42,151 +42,27 @@
 // (a single circuit vector: 8-32 gates) by the latency of the 3 x n/g
 // small launches.
 //
-// Every entry point returns cudaGetLastError(); nothing is allocated here
-// (the wrapper passes acc, F and S) and nothing synchronises.
+// Kernels 1 and 3 and the modular arithmetic live in pbs_common.cuh,
+// shared with the single-bit kernel K2 (blind_rotate_sb.cu). Every entry
+// point returns cudaGetLastError(); nothing is allocated here (the wrapper
+// passes acc, F and S) and nothing synchronises.
 
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "pbs_common.cuh"
+
 namespace {
 
-constexpr int NP = 4;         // CRT primes (helm_tpu.fhe.modring.NUM_PRIMES)
-constexpr int MAX_ROWS = 16;  // gadget rows k*l_mask + l
-constexpr int THREADS = 256;  // kernels 1 and 3
-
-struct Consts {
-  uint32_t p[NP];
-  unsigned long long mu[NP];  // floor((2^64 - 1) / p): Barrett constant
-  uint32_t mu32[NP];          // floor(2^32 / p)
-  uint32_t n_inv[NP], n_inv_sh[NP];
-  uint32_t inv_p0_mod_p1, inv_p0_mod_p1_sh;
-  uint32_t p0_mod_p2, p0_mod_p2_sh;
-  uint32_t inv_p01_mod_p2, inv_p01_mod_p2_sh;
-  uint32_t p0_mod_p3, p0_mod_p3_sh;
-  uint32_t p01_mod_p3, p01_mod_p3_sh;
-  uint32_t inv_p012_mod_p3, inv_p012_mod_p3_sh;
-  uint32_t prod_mod_q, half_p3;
+// decompose_fwd's source: the bare accumulator, acc [G, k+1, N]
+struct AccWords {
+  const uint32_t* acc;
+  __device__ __forceinline__ uint32_t operator()(const Shape& S, int gate, int c,
+                                                 int coef) const {
+    return acc[((size_t)gate * S.kp1 + c) * S.N + coef];
+  }
 };
-
-struct Shape {
-  int G, n, N, logN, k, kp1, g, rows;
-  int mask_bl, mask_lv, bl, lv;
-};
-
-// (a * w) mod p with w_sh = floor(w * 2^16 / p); a <= 2^16 (ntt.py:27)
-__device__ __forceinline__ uint32_t mul_shoup(uint32_t a, uint32_t w,
-                                              uint32_t w_sh, uint32_t p) {
-  uint32_t q = (a * w_sh) >> 16;
-  uint32_t r = a * w - q * p;
-  return r >= p ? r - p : r;
-}
-
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) {
-  uint32_t r = a + b;
-  return r >= p ? r - p : r;
-}
-
-__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t p) {
-  uint32_t r = a - b;
-  return a < b ? r + p : r;
-}
-
-// x mod p for x < 2^40: q is floor(x/p) or one less, so one correction
-__device__ __forceinline__ uint32_t reduce64(unsigned long long x, uint32_t p,
-                                             unsigned long long mu) {
-  unsigned long long q = __umul64hi(x, mu);
-  uint32_t r = (uint32_t)(x - q * p);
-  return r >= p ? r - p : r;
-}
-
-// x mod p for any u32 x: q is floor(x/p) or one less, so one correction
-__device__ __forceinline__ uint32_t reduce32(uint32_t x, uint32_t p, uint32_t mu32) {
-  uint32_t r = x - __umulhi(x, mu32) * p;
-  return r >= p ? r - p : r;
-}
-
-extern __shared__ __align__(16) unsigned char smem_raw[];
-
-__device__ __forceinline__ uint32_t garner(uint32_t r0, uint32_t r1, uint32_t r2,
-                                           uint32_t r3, const Consts& K) {
-  const uint32_t p0 = K.p[0], p1 = K.p[1], p2 = K.p[2], p3 = K.p[3];
-  // v0 = r0 < p0 < p1 < p2 < p3 (ascending, checked on the host), so the
-  // reference's v0 % p_i (ntt.py:160-167) is v0 itself
-  uint32_t v0 = r0;
-  uint32_t t1 = sub_mod(r1, v0, p1);
-  uint32_t v1 = mul_shoup(t1, K.inv_p0_mod_p1, K.inv_p0_mod_p1_sh, p1);
-  uint32_t m2 = add_mod(v0, mul_shoup(v1, K.p0_mod_p2, K.p0_mod_p2_sh, p2), p2);
-  uint32_t t2 = sub_mod(r2, m2, p2);
-  uint32_t v2 = mul_shoup(t2, K.inv_p01_mod_p2, K.inv_p01_mod_p2_sh, p2);
-  uint32_t m3 = add_mod(v0, mul_shoup(v1, K.p0_mod_p3, K.p0_mod_p3_sh, p3), p3);
-  m3 = add_mod(m3, mul_shoup(v2, K.p01_mod_p3, K.p01_mod_p3_sh, p3), p3);
-  uint32_t t3 = sub_mod(r3, m3, p3);
-  uint32_t v3 = mul_shoup(t3, K.inv_p012_mod_p3, K.inv_p012_mod_p3_sh, p3);
-  uint32_t x = v0 + p0 * (v1 + p1 * (v2 + p2 * v3));  // wrapping == mod 2^32
-  return v3 > K.half_p3 ? x - K.prod_mod_q : x;        // balanced lift
-}
-
-// 1. gadget decomposition + forward NTT of every row, one prime per block
-__global__ void decompose_fwd(const uint32_t* __restrict__ acc,
-                              uint32_t* __restrict__ fbuf,
-                              const uint32_t* __restrict__ psi,
-                              const uint32_t* __restrict__ psi_sh, Shape S,
-                              Consts K) {
-  uint32_t* buf = reinterpret_cast<uint32_t*>(smem_raw);  // [rows, N]
-  const int gate = blockIdx.x, pi = blockIdx.y;
-  const int N = S.N, logN = S.logN;
-  const uint32_t p = K.p[pi], mu32 = K.mu32[pi];
-  const uint32_t* a = acc + (size_t)gate * S.kp1 * N;
-  for (int idx = threadIdx.x; idx < S.kp1 * N; idx += blockDim.x) {
-    const int c = idx >> logN, coef = idx & (N - 1);
-    int bl, lv, row0;
-    if (c < S.k) {
-      bl = S.mask_bl; lv = S.mask_lv; row0 = c * S.mask_lv;
-    } else {
-      bl = S.bl; lv = S.lv; row0 = S.k * S.mask_lv;
-    }
-    const int total = bl * lv;  // < 32 (checked on the host)
-    const uint32_t b = 1u << bl, half = b >> 1;
-    uint32_t r = ((a[idx] >> (32 - total - 1)) + 1u) >> 1;
-    r &= (1u << total) - 1u;
-    // least significant level first; level 0 (weight q/B) is row0
-    for (int j = lv - 1; j >= 0; --j) {
-      int d = (int)(r & (b - 1u));
-      const uint32_t carry = (uint32_t)d >= half;
-      if (carry) d -= (int)b;
-      r = (r >> bl) + carry;
-      // floor-mod (ntt.py:134): |d| <= 2^15 < 4p (base_log <= 16, checked
-      // on the host), so d + 4p is a non-negative u32 with the same residue
-      buf[(row0 + j) * N + coef] = reduce32((uint32_t)(d + 4 * (int)p), p, mu32);
-    }
-  }
-  __syncthreads();
-  // merged-psi Cooley-Tukey (ntt.py:65): natural -> bit-reversed
-  const uint32_t* w_t = psi + pi * N;
-  const uint32_t* ws_t = psi_sh + pi * N;
-  const int half_n = N >> 1, total = S.rows * half_n;
-  int logt = logN;
-  for (int m = 1; m < N; m <<= 1) {
-    --logt;
-    const int t = 1 << logt;
-    for (int bi = threadIdx.x; bi < total; bi += blockDim.x) {
-      const int row = bi >> (logN - 1), bb = bi & (half_n - 1);
-      const int i = bb >> logt, j = bb & (t - 1);
-      const int base = row * N + (i << (logt + 1)) + j;
-      const uint32_t u = buf[base];
-      const uint32_t v = mul_shoup(buf[base + t], __ldg(w_t + m + i), __ldg(ws_t + m + i), p);
-      buf[base] = add_mod(u, v, p);
-      buf[base + t] = sub_mod(u, v, p);
-    }
-    __syncthreads();
-  }
-  uint32_t* out = fbuf + (size_t)gate * S.rows * NP * N + (size_t)pi * N;
-  for (int idx = threadIdx.x; idx < S.rows * N; idx += blockDim.x) {
-    const int r = idx >> logN, coef = idx & (N - 1);
-    out[(size_t)r * NP * N + coef] = buf[idx];
-  }
-}
 
 // 2. pointwise products against the group's BSK slab; one thread per
 //    (prime, frequency), looping over a chunk of gates. NARROW (every
@@ -256,47 +132,6 @@ __global__ void pointwise(const uint32_t* __restrict__ fbuf,
   }
 }
 
-// 3. inverse NTT over the NP primes of one (gate, component), Garner,
-//    accumulate into acc
-__global__ void inverse_garner(uint32_t* __restrict__ acc,
-                               const uint32_t* __restrict__ sbuf,
-                               const uint32_t* __restrict__ psi_inv,
-                               const uint32_t* __restrict__ psi_inv_sh,
-                               Shape S, Consts K) {
-  uint32_t* buf = reinterpret_cast<uint32_t*>(smem_raw);  // [NP, N]
-  const int gate = blockIdx.x, c = blockIdx.y;
-  const int N = S.N, logN = S.logN, NPN = NP * N;
-  const uint32_t* src = sbuf + ((size_t)gate * S.kp1 + c) * NPN;
-  for (int idx = threadIdx.x; idx < NPN; idx += blockDim.x) buf[idx] = src[idx];
-  __syncthreads();
-  // Gentleman-Sande (ntt.py:87): bit-reversed -> natural; row = prime
-  const int half_n = N >> 1, total = NP * half_n;
-  int logt = 0;
-  for (int m = N; m > 1; m >>= 1) {
-    const int h = m >> 1, t = 1 << logt;
-    for (int bi = threadIdx.x; bi < total; bi += blockDim.x) {
-      const int row = bi >> (logN - 1), bb = bi & (half_n - 1);
-      const int i = bb >> logt, j = bb & (t - 1);
-      const int base = row * N + (i << (logt + 1)) + j;
-      const uint32_t p = K.p[row];
-      const uint32_t u = buf[base], w = buf[base + t];
-      buf[base] = add_mod(u, w, p);
-      buf[base + t] = mul_shoup(sub_mod(u, w, p), __ldg(psi_inv + row * N + h + i),
-                                __ldg(psi_inv_sh + row * N + h + i), p);
-    }
-    ++logt;
-    __syncthreads();
-  }
-  uint32_t* dst = acc + ((size_t)gate * S.kp1 + c) * N;
-  for (int coef = threadIdx.x; coef < N; coef += blockDim.x) {
-    uint32_t r[NP];
-#pragma unroll
-    for (int i = 0; i < NP; ++i)
-      r[i] = mul_shoup(buf[i * N + coef], K.n_inv[i], K.n_inv_sh[i], K.p[i]);
-    dst[coef] += garner(r[0], r[1], r[2], r[3], K);
-  }
-}
-
 template <int GB, bool NARROW>
 cudaError_t launch_pointwise(const Shape& S, const Consts& K, int threads,
                              size_t smem, int gpb, const uint32_t* fbuf,
@@ -316,8 +151,7 @@ cudaError_t launch_pointwise(const Shape& S, const Consts& K, int threads,
 
 }  // namespace
 
-// consts (host, 26 words): p[4], n_inv[4], n_inv_sh[4], then the 14 Garner
-// constants in GarnerConstants field order (helm_tpu/fhe/modring.py).
+// consts (host, 26 words): see load_consts in pbs_common.cuh.
 // acc: u32 [G, k+1, N], in/out. abar: i32 [G, n] in [0, 2N).
 // bsk: u32 [n/g, 2^g-1, rows, k+1, NP, N]. psi*: u32 [NP, N]. pw: u32
 // [NP, 2N]. ef: i32 [N]. fbuf: u32 [G, rows, NP, N]. sbuf: u32
@@ -329,39 +163,13 @@ extern "C" int helm_blind_rotate_mb(
     const uint32_t* consts, int G, int n, int N, int k, int g, int mask_bl,
     int mask_lv, int bl, int lv, void* stream) {
   Shape S;
-  S.G = G; S.n = n; S.N = N; S.k = k; S.kp1 = k + 1; S.g = g;
-  S.mask_bl = mask_bl; S.mask_lv = mask_lv; S.bl = bl; S.lv = lv;
-  S.rows = k * mask_lv + lv;
-  S.logN = 0;
-  while ((1 << S.logN) < N) ++S.logN;
-  if (G <= 0 || (1 << S.logN) != N || N < 64 || N > 2048 || g < 1 || g > 4 ||
-      n % g != 0 || S.rows > MAX_ROWS || bl > 16 || mask_bl > 16 ||
-      bl * lv >= 32 || mask_bl * mask_lv >= 32)
-    return (int)cudaErrorInvalidValue;
   Consts K;
-  for (int i = 0; i < NP; ++i) {
-    K.p[i] = consts[i];
-    K.mu[i] = ~0ull / consts[i];
-    K.mu32[i] = (uint32_t)((1ull << 32) / consts[i]);
-    K.n_inv[i] = consts[4 + i];
-    K.n_inv_sh[i] = consts[8 + i];
-    if (consts[i] < 3 || consts[i] > 65537 || (i > 0 && consts[i] <= consts[i - 1]))
-      return (int)cudaErrorInvalidValue;  // ascending primes <= 2^16 + 1
-  }
-  const uint32_t* gc = consts + 12;
-  K.inv_p0_mod_p1 = gc[0]; K.inv_p0_mod_p1_sh = gc[1];
-  K.p0_mod_p2 = gc[2]; K.p0_mod_p2_sh = gc[3];
-  K.inv_p01_mod_p2 = gc[4]; K.inv_p01_mod_p2_sh = gc[5];
-  K.p0_mod_p3 = gc[6]; K.p0_mod_p3_sh = gc[7];
-  K.p01_mod_p3 = gc[8]; K.p01_mod_p3_sh = gc[9];
-  K.inv_p012_mod_p3 = gc[10]; K.inv_p012_mod_p3_sh = gc[11];
-  K.prod_mod_q = gc[12]; K.half_p3 = gc[13];
-
+  if (!make_shape(S, G, n, N, k, g, mask_bl, mask_lv, bl, lv) || g < 1 || g > 4 ||
+      n % g != 0 || !load_consts(K, consts))
+    return (int)cudaErrorInvalidValue;
   // u32 accumulation is exact when every sum of products fits 32 bits
-  const unsigned long long pm = consts[NP - 1] - 1ull, sq = pm * pm;
   const int nv1 = (1 << g) - 1;
-  const bool narrow = (unsigned long long)S.rows * sq < (1ull << 32) &&
-                      (unsigned long long)nv1 * sq < (1ull << 32);
+  const bool narrow = fits_u32(K, S.rows) && fits_u32(K, nv1);
 
   cudaStream_t st = (cudaStream_t)stream;
   const size_t smem1 = (size_t)S.rows * N * sizeof(uint32_t);
@@ -385,7 +193,8 @@ extern "C" int helm_blind_rotate_mb(
                                 launch_pointwise<3, true>, launch_pointwise<4, true>};
   const Launch pointwise_launch = (narrow ? narrow_fns : wide_fns)[g - 1];
   cudaError_t e;
-  e = cudaFuncSetAttribute(decompose_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+  e = cudaFuncSetAttribute(decompose_fwd<AccWords>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem1);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(inverse_garner, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem3);
   if (e != cudaSuccess) return (int)e;
@@ -394,7 +203,7 @@ extern "C" int helm_blind_rotate_mb(
   const size_t slab = (size_t)W * NP * N;
   for (int j = 0; j < n / g; ++j) {
     decompose_fwd<<<dim3(G, NP), THREADS, smem1, st>>>(
-        (const uint32_t*)acc, (uint32_t*)fbuf, (const uint32_t*)psi,
+        AccWords{(const uint32_t*)acc}, (uint32_t*)fbuf, (const uint32_t*)psi,
         (const uint32_t*)psi_sh, S, K);
     e = pointwise_launch(S, K, t2, smem2, gpb, (const uint32_t*)fbuf, (uint32_t*)sbuf,
                          bsk_u + slab * j, (const int*)abar, j, (const uint32_t*)pw,

@@ -1,14 +1,17 @@
-"""Boolean engine, gates mode, on a torch device.
+"""Boolean engines, gates mode and LUT mode, on a torch device.
 
 Counterpart of `helm_tpu/engines/boolean.py`. The wire map is a word
 tensor [W, n+1] (or [B, W, n+1] for a batch of B input vectors) on the
-engine's device; every level of the shared level plan
-(`helm_tpu.circuit.plan.build_plan`) runs as: gather the slot inputs,
-per-slot linear combination, ONE batched bootstrap over all slots
-(`ops.mb_pbs.bootstrap`: the CUDA kernel on the card, the plain torch
-version on the CPU), scatter, MUX pairs, linear ops. Sequential circuits
-loop `evaluate` per cycle; the READY protocol latches outputs
-obliviously (`evaluate_ready`).
+engine's device; every level of the level plan (`circuit/plan.py`
+`build_plan`) runs as: gather the slot inputs, per-slot linear
+combination, ONE batched bootstrap over all slots (`ops.mb_pbs.bootstrap`:
+on the card the multi-bit kernel K1 for grouping > 1 and the single-bit
+kernel K2 for grouping 1, on the CPU their plain torch versions),
+scatter, MUX pairs, linear ops. In LUT mode each slot bootstraps with its
+own test polynomial (`testv_bank[testv_sel]`, tiled across a batch of
+input vectors) and wires carry messages m * delta instead of +-q/8.
+Sequential circuits loop `evaluate` per cycle; the READY protocol latches
+outputs obliviously (`evaluate_ready`).
 
 The reference's TPU-only mechanics are left out: executable caching and
 AOT (`cached_jit`), the fused `lax.scan` over levels and its chunking and
@@ -24,16 +27,14 @@ import time
 import numpy as np
 import torch
 
-from helm_tpu.circuit.graph import Circuit
-from helm_tpu.circuit.plan import Q8, CircuitPlan, binarize, build_plan
-from helm_tpu.circuit.verilog import Netlist
-from helm_tpu.fhe import lwe
-from helm_tpu.params import DEFAULT_GATES, Q, TfheParams, warn_if_weak
-
-from ..fhe import pbs
+from ..circuit.graph import Circuit
+from ..circuit.plan import Q8, CircuitPlan, binarize, build_plan, decompose_wide_luts
+from ..circuit.verilog import Netlist
+from ..fhe import lwe, pbs
 from ..fhe.ntt import M32, to_host, words
 from ..fhe.server_key import gen_server_key
 from ..ops import mb_pbs
+from ..params import DEFAULT_GATES, DEFAULT_LUT, Q, TfheParams, warn_if_weak
 
 _PLAN_FIELDS = (
     "slot_in", "slot_coef", "slot_off", "slot_dst",
@@ -50,14 +51,18 @@ def _lin_ops(wires, lp):
 
 
 def _level_step(dsk, wires, lp, testv):
-    """One PBS level (boolean.py:33 `_level_body`), updating `wires` in place."""
+    """One PBS level (boolean.py:33 `_level_body`), updating `wires` in place.
+    testv: [1, N] (gates) or one test polynomial per slot [S, N] (LUT)."""
     n = dsk.params.n
     ins = wires[..., lp["slot_in"], :]  # [.., S, 3, n+1]
     pre = (ins * lp["slot_coef"][..., None]).sum(dim=-2)
     pre[..., n] += lp["slot_off"]
     pre = pre & M32
     lead = pre.shape[:-2]
-    outs = mb_pbs.bootstrap(dsk, pre.reshape(-1, n + 1), testv)
+    pre = pre.reshape(-1, n + 1)
+    if testv.shape[0] not in (1, pre.shape[0]):  # a batch: per-slot polys repeat
+        testv = testv.repeat(pre.shape[0] // testv.shape[0], 1)
+    outs = mb_pbs.bootstrap(dsk, pre, testv)
     outs = outs.reshape(lead + (-1, n + 1))
     wires[..., lp["slot_dst"], :] = outs
     mval = outs[..., lp["mux_pairs"][:, 0], :] + outs[..., lp["mux_pairs"][:, 1], :]
@@ -83,8 +88,22 @@ def _ready_step_gates(dsk, ready, new, valid, testv):
     return res & M32
 
 
+def _ready_step_lut(dsk, ready, new, valid, testv_and, delta):
+    """valid <- new*READY + valid*(1-READY) (boolean.py:229), batched as
+    one bootstrap launch. ready: [.., n+1]; new/valid: [.., n_out, n+1]."""
+    n = dsk.params.n
+    not_ready = (0 - ready) & M32
+    not_ready[..., n] += delta
+    pre1 = 2 * new + ready[..., None, :]
+    pre2 = 2 * valid + not_ready[..., None, :]
+    both = torch.cat([pre1, pre2], dim=-2) & M32
+    outs = mb_pbs.bootstrap(dsk, both.reshape(-1, n + 1), testv_and).reshape(both.shape)
+    k = new.shape[-2]
+    return (outs[..., :k, :] + outs[..., k:, :]) & M32
+
+
 class BooleanEngine:
-    """Gates-mode encrypted circuit evaluator on a torch device."""
+    """Gates- or LUT-mode encrypted circuit evaluator on a torch device."""
 
     def __init__(
         self,
@@ -94,16 +113,11 @@ class BooleanEngine:
         keys=None,
         device="cuda",
     ):
-        if mode == "lut":
-            raise NotImplementedError(
-                "LUT mode is not ported yet (ROADMAP.md queue 1 item 5); use "
-                "helm_tpu.engines.boolean.BooleanEngine(mode='lut')"
-            )
-        if mode != "gates":
-            raise ValueError(f"unknown mode {mode!r} (gates; lut is not ported yet)")
+        if mode not in ("gates", "lut"):
+            raise ValueError(f"unknown mode {mode!r} (gates or lut)")
         self.mode = mode
         self.device = torch.device(device)
-        self.params = params or DEFAULT_GATES
+        self.params = params or (DEFAULT_GATES if mode == "gates" else DEFAULT_LUT)
         warn_if_weak(self.params)
         if keys is not None:  # preloaded (client, server) keys (fhe/keys.py)
             self.client_key, sk = keys
@@ -112,19 +126,29 @@ class BooleanEngine:
             self.client_key = lwe.keygen(self.params, seed)
             sk = gen_server_key(self.client_key, self.device)
         self.dsk = pbs.DeviceServerKey.from_host(sk, self.device)
-        if self.device.type == "cuda" and self.params.grouping > 1:
-            mb_pbs.mb_server_key(self.dsk)  # lay the BSK out once, up front
+        if self.device.type == "cuda":
+            mb_pbs.mb_server_key(self.dsk)  # the kernels' key layout, once, up front
         self.plan: CircuitPlan | None = None
         self._testv_gates = words(pbs.gates_test_poly(self.params), self.device)
+        if mode == "lut":
+            half = self.params.msg_space // 2
+            and_tab = np.array([((m >> 1) & 1) & (m & 1) for m in range(half)], np.uint64)
+            self._testv_and = words(pbs.lut_test_poly(self.params, and_tab)[None, :], self.device)
 
     # -- compilation ---------------------------------------------------
     def compile(self, netlist: Netlist) -> None:
         gates = binarize(netlist.gates)
+        if self.mode == "lut":
+            gates = decompose_wide_luts(gates)
         circuit = Circuit(gates, netlist.inputs, netlist.outputs, netlist.dff_outputs)
         circuit.sort_circuit()
         circuit.compute_levels()
+        # binarize / decompose_wide_luts introduce fresh intermediate wires
         wire_set = set(netlist.wire_set) | {g.output for g in gates}
-        self.plan = build_plan(circuit, wire_set, self.params, self.mode)
+        self.plan = build_plan(
+            circuit, wire_set, self.params, self.mode,
+            lut_test_poly_fn=lambda tab: pbs.lut_test_poly(self.params, tab),
+        )
         dev = self.device
 
         def t(a):
@@ -135,12 +159,26 @@ class BooleanEngine:
         self._dev_levels = [
             {f: t(getattr(lp, f)) for f in _PLAN_FIELDS} for lp in self.plan.levels
         ]
+        if self.mode == "lut":  # each PBS level's per-slot test polynomials
+            bank = words(self.plan.testv_bank, dev) if self.plan.testv_bank is not None else None
+            for d, lp in zip(self._dev_levels, self.plan.levels):
+                d["testv"] = bank[t(lp.testv_sel)] if lp.num_slots else None
 
     # -- client role ---------------------------------------------------
+    def _encode(self, v) -> np.ndarray:
+        if self.mode == "gates":
+            return lwe.encode_bool(bool(v))
+        return lwe.encode_msg(self.params, int(bool(v)))
+
+    def _decode(self, phase):
+        if self.mode == "gates":
+            return bool(lwe.decode_bool(phase))
+        return int(lwe.decode_msg(self.params, phase))
+
     def _encrypt_host(self, input_wire_map: dict) -> np.ndarray:
         p = self.params
         wires = np.zeros((self.plan.num_wires, p.n + 1), dtype=np.uint32)
-        wires[:, p.n] = lwe.encode_bool(False)  # trivial encryptions of false
+        wires[:, p.n] = self._encode(False)  # trivial encryptions of false / 0
         dummy = not input_wire_map or "dummy" in input_wire_map
         dff = set(self.plan.dff_outputs)
         for w in self.plan.input_wires:
@@ -152,13 +190,9 @@ class BooleanEngine:
                 raise KeyError(f'Input wire "{w}" not found in input wires!')
             else:
                 val = input_wire_map[w]
-            wires[self.plan.wire_index[w]] = lwe.encrypt(
-                self.client_key, lwe.encode_bool(bool(val))
-            )
+            wires[self.plan.wire_index[w]] = lwe.encrypt(self.client_key, self._encode(val))
         for w in self.plan.dff_outputs:
-            wires[self.plan.wire_index[w]] = lwe.encrypt(
-                self.client_key, lwe.encode_bool(False)
-            )
+            wires[self.plan.wire_index[w]] = lwe.encrypt(self.client_key, self._encode(False))
         return wires
 
     def _encrypt_host_batched(self, maps: list) -> np.ndarray:
@@ -166,7 +200,7 @@ class BooleanEngine:
         p = self.params
         B, W = len(maps), self.plan.num_wires
         arr = np.zeros((B, W, p.n + 1), dtype=np.uint32)
-        arr[:, :, p.n] = lwe.encode_bool(False)
+        arr[:, :, p.n] = self._encode(False)
         dff = set(self.plan.dff_outputs)
         idxs, mus = [], []
         for m in maps:
@@ -181,10 +215,10 @@ class BooleanEngine:
                 else:
                     val = m[w]
                 idxs.append(self.plan.wire_index[w])
-                mus.append(lwe.encode_bool(bool(val)))
+                mus.append(self._encode(val))
             for w in self.plan.dff_outputs:
                 idxs.append(self.plan.wire_index[w])
-                mus.append(lwe.encode_bool(False))
+                mus.append(self._encode(False))
         if not idxs:
             return arr
         cts = lwe.encrypt_many(self.client_key, np.asarray(mus))
@@ -214,7 +248,8 @@ class BooleanEngine:
             if lp["slot_in"].shape[0] == 0:
                 _lin_ops(wires, lp)
             else:
-                _level_step(self.dsk, wires, lp, self._testv_gates)
+                testv = lp["testv"] if self.mode == "lut" else self._testv_gates
+                _level_step(self.dsk, wires, lp, testv)
             if verbose:
                 ns = self.plan.levels[i].num_slots
                 print(
@@ -236,12 +271,12 @@ class BooleanEngine:
         return self.plan is not None and "READY" in self.plan.wire_index
 
     def init_ready(self, batch: int | None = None) -> torch.Tensor:
-        """Trivial-false latches for the output wires."""
+        """Trivial false / 0 latches for the output wires."""
         p = self.params
         n_out = len(self.plan.output_wires)
         shape = (n_out, p.n + 1) if batch is None else (batch, n_out, p.n + 1)
         valid = np.zeros(shape, dtype=np.uint32)
-        valid[..., p.n] = lwe.encode_bool(False)
+        valid[..., p.n] = self._encode(False)
         return words(valid, self.device)
 
     def evaluate_ready(self, wires: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -251,7 +286,11 @@ class BooleanEngine:
         )
         ready = wires[..., self.plan.wire_index["READY"], :]
         new = wires[..., idx, :]
-        return _ready_step_gates(self.dsk, ready, new, valid, self._testv_gates)
+        if self.mode == "gates":
+            return _ready_step_gates(self.dsk, ready, new, valid, self._testv_gates)
+        return _ready_step_lut(
+            self.dsk, ready, new, valid, self._testv_and, self.params.delta
+        )
 
     # -- decryption ----------------------------------------------------
     def decrypt_outputs(self, wires: torch.Tensor, from_valid: bool = False):
@@ -264,7 +303,7 @@ class BooleanEngine:
         out = {}
         for i, w in enumerate(self.plan.output_wires):
             row = host[i] if from_valid else host[self.plan.wire_index[w]]
-            out[w] = bool(lwe.decode_bool(lwe.decrypt_phase(self.client_key, row)))
+            out[w] = self._decode(lwe.decrypt_phase(self.client_key, row))
         return out
 
     def decrypt_all_wires(self, wires: torch.Tensor):
@@ -276,6 +315,6 @@ class BooleanEngine:
 
     def _decrypt_all_one(self, host: np.ndarray) -> dict:
         return {
-            w: bool(lwe.decode_bool(lwe.decrypt_phase(self.client_key, host[i])))
+            w: self._decode(lwe.decrypt_phase(self.client_key, host[i]))
             for w, i in self.plan.wire_index.items()
         }

@@ -1,22 +1,83 @@
-"""Key persistence for the port.
+"""Key persistence for the port: save / load client and server keys.
 
-Counterpart of `helm_tpu/fhe/keys.py:87` `load_or_generate`: loading and
-saving are the reference's own (numpy npz files, shared by both
-packages); generation goes through the port's keygen (`server_key.py`)
-with its NTT on `device`.
+Counterpart of `helm_tpu/fhe/keys.py`. The npz format is the reference's
+own, so key files written by either package load in the other; the code
+is copied here so that the port imports nothing of the JAX package.
+`load_or_generate` generates through the port's keygen (`server_key.py`)
+with its NTT on `device` (the card by default).
 """
 
 from __future__ import annotations
 
 import os
 
-from helm_tpu.fhe import keys as ref_keys
-from helm_tpu.fhe.lwe import keygen
+import numpy as np
 
-from .server_key import gen_server_key
+from ..params import ALL_PARAMS
+from .csprng import make_rng
+from .lwe import ClientKey, keygen
+from .modring import PRIMES, PRIMES_1024, primes_for
+from .server_key import ServerKey, gen_server_key
 
 
-def load_or_generate(dir_path: str, params, seed=None, device="cpu"):
+def save_client_key(path: str, ck: ClientKey) -> None:
+    np.savez_compressed(
+        path,
+        kind="client",
+        params=ck.params.name,
+        lwe_key=ck.lwe_key,
+        glwe_key=ck.glwe_key,
+    )
+
+
+def load_client_key(path: str) -> ClientKey:
+    z = np.load(path, allow_pickle=False)
+    assert str(z["kind"]) == "client", "not a client key file"
+    params = ALL_PARAMS[str(z["params"])]
+    return ClientKey(params, z["lwe_key"], z["glwe_key"], make_rng())
+
+
+def save_server_key(path: str, sk: ServerKey) -> None:
+    np.savez_compressed(
+        path,
+        kind="server",
+        params=sk.params.name,
+        # the BSK is serialized in the NTT/CRT domain, so the file is only
+        # valid for the prime set it was built under (modring.primes_for)
+        primes=np.asarray(primes_for(sk.params.N), dtype=np.uint32),
+        bsk_ntt=sk.bsk_ntt,
+        bsk_ntt_sh=sk.bsk_ntt_sh,
+        ksk_limbs=sk.ksk_limbs,
+    )
+
+
+def load_server_key(path: str) -> ServerKey:
+    z = np.load(path, allow_pickle=False)
+    assert str(z["kind"]) == "server", "not a server key file"
+    params = ALL_PARAMS[str(z["params"])]
+    want = np.asarray(primes_for(params.N), dtype=np.uint32)
+    if "primes" in z.files:
+        got = z["primes"]
+    else:  # files that recorded no prime set: the legacy mapping
+        got = np.asarray(PRIMES_1024 if params.N <= 1024 else PRIMES, dtype=np.uint32)
+    if not np.array_equal(got, want):
+        raise ValueError(
+            f"{path}: server key was built under CRT primes "
+            f"{got.tolist()} but this build uses {want.tolist()} for "
+            f"N={params.N} — regenerate the key"
+        )
+    ksk = z["ksk_limbs"]
+    want_rows = params.big_n * params.ks_level
+    if ksk.shape[1] != want_rows:
+        raise ValueError(
+            f"{path}: KSK has {ksk.shape[1]} decomposition rows but "
+            f"params '{params.name}' expect big_n*ks_level = {want_rows} "
+            f"(keyswitch geometry changed) — regenerate the key"
+        )
+    return ServerKey(params, z["bsk_ntt"], z["bsk_ntt_sh"], ksk)
+
+
+def load_or_generate(dir_path: str, params, seed=None, device="cuda"):
     """Load (client, server) keys for `params` from dir_path when present,
     else generate them (NTT on `device`) and save them there."""
     os.makedirs(dir_path, exist_ok=True)
@@ -24,7 +85,7 @@ def load_or_generate(dir_path: str, params, seed=None, device="cpu"):
     skp = os.path.join(dir_path, f"sk_{params.name}.npz")
     if os.path.exists(ckp) and os.path.exists(skp):
         try:
-            return ref_keys.load_client_key(ckp), ref_keys.load_server_key(skp)
+            return load_client_key(ckp), load_server_key(skp)
         except ValueError as e:  # e.g. CRT prime set changed
             # park the stale pair (never overwrite a client key in place)
             idx = 0
@@ -41,6 +102,6 @@ def load_or_generate(dir_path: str, params, seed=None, device="cpu"):
             )
     ck = keygen(params, seed)
     sk = gen_server_key(ck, device)
-    ref_keys.save_client_key(ckp, ck)
-    ref_keys.save_server_key(skp, sk)
+    save_client_key(ckp, ck)
+    save_server_key(skp, sk)
     return ck, sk

@@ -2,7 +2,8 @@
 
 Counterpart of `helm_tpu/fhe/ntt.py` (same transforms, same Shoup
 multiplies, same Garner recombination) and built from the same tables
-(`helm_tpu.fhe.modring.get_tables`), so every function returns the same
+(`modring.get_tables`, the port's copy of
+`helm_tpu/fhe/modring.py`), so every function returns the same
 words as its numpy / jnp twin.
 
 Word representation (used everywhere in helm_tpu_torch): a uint32 word is
@@ -32,7 +33,7 @@ import functools
 import numpy as np
 import torch
 
-from helm_tpu.fhe.modring import NUM_PRIMES, SHOUP_SHIFT, NttTables, get_tables
+from .modring import NUM_PRIMES, SHOUP_SHIFT, NttTables, get_tables
 
 M32 = 0xFFFFFFFF
 

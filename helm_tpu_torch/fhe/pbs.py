@@ -1,9 +1,10 @@
 """Batched programmable bootstrapping as plain torch ops.
 
 Counterpart of `helm_tpu/fhe/pbs_jnp.py`. These are the plain versions
-of the port's kernels: `blind_rotate_multibit` is the plain version of
-the multi-bit blind-rotation kernel (`ops/mb_pbs.py`,
-`csrc/blind_rotate_mb.cu`), and the CPU path of the dispatcher. All
+of the port's kernels, and the CPU path of the dispatcher:
+`blind_rotate_multibit` is the plain version of the multi-bit kernel K1
+(`ops/mb_pbs.py`, `csrc/blind_rotate_mb.cu`), `blind_rotate` that of the
+single-bit kernel K2 (`ops/sb_pbs.py`, `csrc/blind_rotate_sb.cu`). All
 arithmetic is exact, so every function returns the same words as its
 jnp twin. Words are int64 values in [0, 2^32) (`fhe/ntt.py`).
 """
@@ -16,11 +17,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from helm_tpu.fhe.modring import NUM_PRIMES, NttTables, get_tables, primes_for
-from helm_tpu.params import TfheParams
-from helm_tpu.fhe.server_key import ServerKey
-
+from ..params import TfheParams
 from . import ops
+from .modring import NUM_PRIMES, NttTables, _bit_reverse, get_tables, primes_for, root_of_unity
 from .ntt import (
     M32,
     _generic_modmul,
@@ -33,6 +32,7 @@ from .ntt import (
     reduce_small_sum,
     sub_mod,
 )
+from .server_key import ServerKey
 
 #: torch._int_mm on CUDA takes more than 16 rows and K, N multiples of 8
 _MM_MIN_ROWS = 32
@@ -67,7 +67,7 @@ class DeviceServerKey:
 
     @staticmethod
     def from_host(sk: ServerKey, device) -> "DeviceServerKey":
-        """Carry helm_tpu's numpy ServerKey onto `device`."""
+        """Carry a numpy ServerKey (`server_key.ServerKey`) onto `device`."""
         device = torch.device(device)
         p = sk.params
         ksk = np.asarray(sk.ksk_limbs)
@@ -95,8 +95,6 @@ def power_tables(N: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
 
     Replaces the reference's bit ladder (`pbs_jnp.monomial_tables`) with
     one direct lookup; the values are the same."""
-    from helm_tpu.fhe.modring import _bit_reverse, root_of_unity
-
     bits = N.bit_length() - 1
     pw = np.zeros((NUM_PRIMES, 2 * N), np.int64)
     for pi, p in enumerate(primes_for(N)):
@@ -121,7 +119,9 @@ def initial_acc(p: TfheParams, lwe_in: torch.Tensor, testv: torch.Tensor):
 
 
 def blind_rotate(dsk: DeviceServerKey, lwe_in: torch.Tensor, testv: torch.Tensor):
-    """Single-bit (g=1) blind rotation (pbs_jnp.py:108). [G, n+1] -> [G, k+1, N]."""
+    """Single-bit (g=1) blind rotation (pbs_jnp.py:108), the plain version
+    of K2: per mask element, acc += INTT(sum_r NTT(dec(X^a_i * acc - acc))_r
+    (.) BSK_i[r]). [G, n+1] -> [G, k+1, N]."""
     p = dsk.params
     tab = dsk.tab
     n, N = p.n, p.N

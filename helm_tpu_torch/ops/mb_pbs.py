@@ -4,12 +4,12 @@ Counterpart of `helm_tpu/ops/mxu_pbs.py`: `blind_rotate_mb` replaces the
 Pallas kernel `blind_rotate_fs_mb` (:2706) with the hand-written CUDA
 kernel in `csrc/blind_rotate_mb.cu`, `mb_server_key` replaces the BSK
 layout `mxu_server_key_fs` (:1954, cached per key as `_layout_cache`
-:1602 does), and `bootstrap` replaces `bootstrap_mxu` (:2839).
+:1602 does), and `bootstrap` replaces `bootstrap_mxu` (:2839): grouping-1
+sets go to the single-bit kernel K2 (`ops/sb_pbs.py`), the others to K1.
 
 Dispatch is by the device of the input tensor: on the CPU the plain torch
 version (`fhe/pbs.py`) runs; on a CUDA tensor the kernel is launched, or
-an error is raised — there is no fallback. Grouping-1 parameter sets need
-the single-bit kernel K2, which is not ported yet, and raise on CUDA.
+an error is raised — there is no fallback.
 """
 
 from __future__ import annotations
@@ -20,9 +20,8 @@ from dataclasses import dataclass
 
 import torch
 
-from helm_tpu.fhe.modring import NUM_PRIMES
-
 from ..fhe import ops, pbs
+from ..fhe.modring import NUM_PRIMES
 from ..fhe.ntt import from_i32_bits, to_i32_bits
 from . import build
 
@@ -33,7 +32,8 @@ _ARGTYPES = [_P] * 11 + [ctypes.POINTER(ctypes.c_uint32)] + [_I] * 9 + [_P]
 
 @dataclass(frozen=True, eq=False)
 class MbKernelKey:
-    """The kernel's view of one server key, derived once per key.
+    """The kernels' view of one server key, derived once per key (K1 and
+    K2 read the same layout; K2 leaves pw and ef unused).
 
     bsk is the NTT-domain BSK as u32 words in its natural
     [n/g, 2^g-1, rows, k+1, NP, N] order, which is already the kernel's
@@ -93,13 +93,25 @@ def mb_server_key(dsk: pbs.DeviceServerKey) -> MbKernelKey:
     return key
 
 
-def _kernel_lib():
-    lib = build.load("blind_rotate_mb")
-    fn = lib.helm_blind_rotate_mb
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+def check_inputs(dsk: pbs.DeviceServerKey, lwe_in, testv, what: str) -> None:
+    """Raise unless a kernel can take these tensors: everything on one
+    CUDA device, int64 words, lwe_in [G, n+1] and testv [1 or G, N]."""
+    p = dsk.params
+    G = lwe_in.shape[0] if lwe_in.dim() else 0
+    if dsk.bsk_ntt.device != lwe_in.device or testv.device != lwe_in.device:
+        raise ValueError(
+            f"{what}: server key on {dsk.bsk_ntt.device}, inputs on "
+            f"{lwe_in.device} / {testv.device}"
+        )
+    if lwe_in.dtype != torch.int64 or testv.dtype != torch.int64:
+        raise ValueError(f"{what}: words are int64 tensors, got {lwe_in.dtype} / {testv.dtype}")
+    if lwe_in.dim() != 2 or G == 0 or lwe_in.shape[1] != p.n + 1 or testv.dim() != 2 or (
+        testv.shape[0] not in (1, G) or testv.shape[1] != p.N
+    ):
+        raise ValueError(
+            f"{what}: lwe_in {tuple(lwe_in.shape)} / testv "
+            f"{tuple(testv.shape)}, want [G, {p.n + 1}] / [1 or G, {p.N}]"
+        )
 
 
 def blind_rotate_mb(
@@ -109,31 +121,19 @@ def blind_rotate_mb(
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (`blind_rotate_mb.launches` counts the launches)."""
-    if lwe_in.device.type == "cpu":
-        return pbs.blind_rotate_multibit(dsk, lwe_in, testv)
     p = dsk.params
     if p.grouping < 2:
-        raise NotImplementedError(
-            f"{p.name}: grouping-1 parameter sets need the single-bit kernel K2 "
-            "(helm_tpu/ops/mxu_pbs.py::blind_rotate_mxu), not ported yet "
-            "(ROADMAP.md queue 2)"
+        raise ValueError(
+            f"{p.name}: grouping 1 is the single-bit kernel's (ops/sb_pbs.py); "
+            "K1 computes another function there"
         )
+    if lwe_in.device.type == "cpu":
+        return pbs.blind_rotate_multibit(dsk, lwe_in, testv)
     if lwe_in.device.type != "cuda":
         raise NotImplementedError(f"blind_rotate_mb: no kernel for {lwe_in.device}")
+    check_inputs(dsk, lwe_in, testv, "blind_rotate_mb")
     n, N, k = p.n, p.N, p.k
     G = lwe_in.shape[0]
-    if dsk.bsk_ntt.device != lwe_in.device or testv.device != lwe_in.device:
-        raise ValueError(
-            f"server key on {dsk.bsk_ntt.device}, inputs on {lwe_in.device} / {testv.device}"
-        )
-    if lwe_in.dim() != 2 or lwe_in.shape[1] != n + 1 or testv.dim() != 2 or (
-        testv.shape[0] not in (1, G) or testv.shape[1] != N
-    ):
-        raise ValueError(
-            f"blind_rotate_mb: lwe_in {tuple(lwe_in.shape)} / testv "
-            f"{tuple(testv.shape)}, want [G, {n + 1}] / [1 or G, {N}]"
-        )
-    lib = _kernel_lib()
     key = mb_server_key(dsk)
     rows = p.gadget_rows
     dev = lwe_in.device
@@ -142,7 +142,7 @@ def blind_rotate_mb(
     fbuf = torch.empty((G, rows, NUM_PRIMES, N), dtype=torch.int32, device=dev)
     sbuf = torch.empty((G, k + 1, NUM_PRIMES, N), dtype=torch.int32, device=dev)
     (mbl, mlv), (bl, lv) = p.component_gadgets[0], p.component_gadgets[-1]
-    rc = lib.helm_blind_rotate_mb(
+    rc = build.entry("blind_rotate_mb", _ARGTYPES)(
         acc.data_ptr(), abar.data_ptr(), key.bsk.data_ptr(),
         key.psi.data_ptr(), key.psi_sh.data_ptr(),
         key.psi_inv.data_ptr(), key.psi_inv_sh.data_ptr(),
@@ -162,10 +162,16 @@ blind_rotate_mb.launches = 0
 def bootstrap(
     dsk: pbs.DeviceServerKey, lwe_in: torch.Tensor, testv: torch.Tensor
 ) -> torch.Tensor:
-    """Full PBS [G, n+1] -> [G, n+1]: blind rotation (kernel on CUDA, plain
-    on the CPU), sample extract, int8-limb keyswitch."""
+    """Full PBS [G, n+1] -> [G, n+1]: blind rotation (K1 for grouping > 1,
+    K2 for grouping 1 on CUDA; the plain versions on the CPU), sample
+    extract, int8-limb keyswitch."""
     if lwe_in.device.type == "cpu":
         return pbs.bootstrap(dsk, lwe_in, testv)
-    acc = blind_rotate_mb(dsk, lwe_in, testv)
+    if dsk.params.grouping > 1:
+        acc = blind_rotate_mb(dsk, lwe_in, testv)
+    else:
+        from .sb_pbs import blind_rotate_sb
+
+        acc = blind_rotate_sb(dsk, lwe_in, testv)
     big = ops.sample_extract(acc, dsk.params.k, dsk.params.N)
     return pbs.keyswitch(dsk, big)

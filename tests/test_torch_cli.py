@@ -72,7 +72,6 @@ def test_cli_missing_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("extra,what", [
     (["-a", "u32"], "arithmetic mode is not ported"),
-    (["-v", "benchmarks/netlists/8-bit-adder-lut-3-1.v"], "LUT netlists are not ported"),
 ])
 def test_cli_unported_modes_point_to_roadmap(extra, what):
     with pytest.raises(SystemExit, match=what):

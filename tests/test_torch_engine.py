@@ -1,9 +1,11 @@
 """helm_tpu_torch BooleanEngine (gates mode, CPU tensors) against helm_tpu's.
 
-Both engines get the same keys and the same encrypted input wires; every
-wire the port computes must equal the jnp engine's word for word (zero
-tolerance: exact arithmetic), and the decrypted outputs must equal the
-golden CSVs and the plaintext oracle.
+Both engines get the same keys (the reference's, carried across with
+`client_key_from_reference` / `server_key_from_reference`) and the same
+encrypted input wires; every wire the port computes must equal the jnp
+engine's word for word (zero tolerance: exact arithmetic), and the
+decrypted outputs must equal the golden CSVs and the plaintext oracle.
+LUT mode is held the same way in tests/test_torch_lut.py.
 """
 
 import jax.numpy as jnp
@@ -18,7 +20,11 @@ from helm_tpu.fhe import lwe
 from helm_tpu.fhe.server_key import gen_server_key
 from helm_tpu.io import csv_io
 from helm_tpu_torch import BooleanEngine
+from helm_tpu_torch.circuit.gates import Gate, GateType
+from helm_tpu_torch.circuit.verilog import Netlist
+from helm_tpu_torch.fhe.lwe import client_key_from_reference
 from helm_tpu_torch.fhe.ntt import to_host
+from helm_tpu_torch.fhe.server_key import server_key_from_reference
 
 #: k=1 multi-bit: the reference's compile time grows with k (the k=3 path
 #: is held word for word in test_torch_pbs.py and on the card)
@@ -30,14 +36,28 @@ def engines():
     ck = lwe.keygen(PARAMS, 4242)
     sk = gen_server_key(ck)
     ref = RefEngine(mode="gates", params=PARAMS, backend="jnp", keys=(ck, sk), fuse_levels=True)
-    port = BooleanEngine(mode="gates", params=PARAMS, keys=(ck, sk), device="cpu")
+    port = BooleanEngine(
+        mode="gates", params=PARAMS, device="cpu",
+        keys=(client_key_from_reference(ck), server_key_from_reference(sk)),
+    )
     return ref, port
+
+
+def _port_netlist(nl):
+    """The reference's parsed netlist as the port's own types (the port's
+    planner matches gates against its own GateType)."""
+    gates = [
+        Gate(g.name, GateType(g.type.value), list(g.inputs), g.output, g.lut_const)
+        for g in nl.gates
+    ]
+    return Netlist(gates, set(nl.wire_set), list(nl.inputs), list(nl.outputs),
+                   list(nl.dff_outputs), nl.has_luts, nl.has_arith)
 
 
 def _compile(engines, nl):
     ref, port = engines
     ref.compile(nl)
-    port.compile(nl)
+    port.compile(_port_netlist(nl))
     assert ref.plan.wire_index == port.plan.wire_index
 
 
@@ -146,8 +166,3 @@ def test_c880_like(engines):
     assert out == _golden("c880-like.outputs.csv")
     exp = _oracle(nl, inputs)
     assert out == {k: bool(exp[k]) for k in nl.outputs}
-
-
-def test_lut_mode_points_to_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
-        BooleanEngine(mode="lut", params=P.TEST_PARAMS_LUT, device="cpu")

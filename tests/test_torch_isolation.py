@@ -1,0 +1,155 @@
+"""helm_tpu_torch stands alone: it imports nothing of JAX or of helm_tpu.
+
+Two checks. An AST scan of every module of the port and of chip_smoke.py
+finds no import of `jax` or `helm_tpu` (the port's own copies of the
+reference's numpy modules take their place). A fresh interpreter runs the
+CLI in gates and LUT modes on the CPU and finds neither `jax*` nor
+`helm_tpu` / `helm_tpu.*` in `sys.modules` afterwards (tests/conftest.py
+imports jax into this process, so only a subprocess can show that).
+The copies themselves are held against the originals: tables, plans,
+parsers and CSV I/O give the same values from both.
+"""
+
+import ast
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from helm_tpu.circuit import plan as ref_plan
+from helm_tpu.circuit import verilog as ref_verilog
+from helm_tpu.circuit.graph import Circuit as RefCircuit
+from helm_tpu.fhe import csprng as ref_csprng
+from helm_tpu.fhe import modring as ref_modring
+from helm_tpu.fhe import security as ref_security
+from helm_tpu.io import csv_io as ref_csv_io
+from helm_tpu_torch import params as P
+from helm_tpu_torch.circuit import plan, verilog
+from helm_tpu_torch.circuit.graph import Circuit
+from helm_tpu_torch.fhe import csprng, modring, pbs, security
+from helm_tpu_torch.io import csv_io
+
+ROOT = Path(__file__).resolve().parents[1]
+SOURCES = sorted((ROOT / "helm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "helm_tpu")
+
+
+def _imports(path: Path) -> list[str]:
+    """Every module name an import statement in `path` names (absolute
+    imports only: a relative import stays inside the package)."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("netlist,inputs,golden", [
+    ("2-bit-adder.v", "2-bit-adder.inputs.csv", "2-bit-adder.outputs.csv"),
+    ("8-bit-adder-lut-3-1.v", "8-bit-adder.inputs.csv", "8-bit-adder-lut-3-1.outputs.csv"),
+])
+def test_cli_in_a_fresh_interpreter_imports_neither(tmp_path, netlist, inputs, golden):
+    out = tmp_path / "out.csv"
+    argv = [
+        "-v", f"benchmarks/netlists/{netlist}", "-i", f"benchmarks/test-cases/{inputs}",
+        "-o", str(out), "--test-params", "--device", "cpu", "--seed", "7",
+    ]
+    code = textwrap.dedent(
+        f"""
+        import sys
+        from helm_tpu_torch import cli
+        assert cli.main({argv!r}) == 0
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+        assert not leaked, leaked
+        print("ISOLATED_OK")
+        """
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=ROOT,
+    )
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    assert "ISOLATED_OK" in res.stdout
+    got = {w: int(v) for w, v in csv_io.read_input_wires(str(out), "bool").items()}
+    exp = {w: int(v) for w, v in csv_io.read_input_wires(
+        str(ROOT / "benchmarks/test-cases" / golden), "bool").items()}
+    assert got == exp
+
+
+@pytest.mark.parametrize("N", [64, 128, 512, 1024, 2048])
+def test_ntt_tables_equal_the_reference(N):
+    mine, ref = modring.get_tables(N), ref_modring.get_tables(N)
+    for f in ("primes", "psi_rev", "psi_rev_sh", "psi_inv_rev", "psi_inv_rev_sh", "n_inv", "n_inv_sh"):
+        np.testing.assert_array_equal(getattr(mine, f), getattr(ref, f), err_msg=f)
+    assert vars(mine.garner) == vars(ref.garner)
+
+
+def test_csprng_stream_equals_the_reference():
+    a, b = csprng.ChaChaGenerator(99), ref_csprng.ChaChaGenerator(99)
+    np.testing.assert_array_equal(a.random_u32(1000), b.random_u32(1000))
+    np.testing.assert_array_equal(a.integers(0, 12345, size=77), b.integers(0, 12345, size=77))
+    np.testing.assert_array_equal(a.normal(0.0, 3.0, size=9), b.normal(0.0, 3.0, size=9))
+
+
+@pytest.mark.parametrize("name", ["gates_tpu_v32", "lut3_v32", "gates_128_k3", "lut_128_k2"])
+def test_security_estimate_equals_the_reference(name):
+    from helm_tpu import params as RP
+
+    assert security.security_bits(P.ALL_PARAMS[name]) == ref_security.security_bits(RP.ALL_PARAMS[name])
+
+
+@pytest.mark.parametrize("netlist,mode", [
+    ("s27.v", "gates"),
+    ("c880-like.v", "gates"),
+    ("8-bit-adder-lut-3-1.v", "lut"),
+])
+def test_parser_and_level_plan_equal_the_reference(netlist, mode):
+    """The port's verilog parser, scheduler and level planner give the
+    reference's plan array for array (LUT test polynomials included)."""
+    from helm_tpu import params as RP
+    from helm_tpu.fhe import pbs_jnp
+
+    src = ROOT / "benchmarks/netlists" / netlist
+    plans = []
+    for vl, pl, circ, params, tp in (
+        (verilog, plan, Circuit, P, pbs.lut_test_poly),
+        (ref_verilog, ref_plan, RefCircuit, RP, pbs_jnp.lut_test_poly),
+    ):
+        nl = vl.read_verilog_file(str(src))
+        p = params.TEST_PARAMS if mode == "gates" else params.TEST_PARAMS_LUT
+        gates = pl.binarize(nl.gates)
+        if mode == "lut":
+            gates = pl.decompose_wide_luts(gates)
+        c = circ(gates, nl.inputs, nl.outputs, nl.dff_outputs)
+        c.sort_circuit()
+        c.compute_levels()
+        wires = set(nl.wire_set) | {g.output for g in gates}
+        plans.append(pl.build_plan(c, wires, p, mode, lut_test_poly_fn=lambda t, p=p, tp=tp: tp(p, t)))
+    mine, ref = plans
+    assert mine.wire_index == ref.wire_index and len(mine.levels) == len(ref.levels)
+    for a, b in zip(mine.levels, ref.levels):
+        for f in ("slot_in", "slot_coef", "slot_off", "slot_dst", "testv_sel", "mux_pairs",
+                  "mux_dst", "lin_src", "lin_coef", "lin_off", "lin_dst"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert (x is None) == (y is None), f
+            if x is not None:
+                np.testing.assert_array_equal(x, y, err_msg=f)
+    if ref.testv_bank is not None:
+        np.testing.assert_array_equal(mine.testv_bank, ref.testv_bank)
+
+
+def test_csv_io_equals_the_reference():
+    for name, kind in (("8-bit-adder.inputs.csv", "bool"), ("c880-like.inputs.csv", "bool"),
+                       ("chi_squared_arith_1.inputs.csv", "u32")):
+        path = str(ROOT / "benchmarks/test-cases" / name)
+        assert csv_io.read_input_wires(path, kind) == ref_csv_io.read_input_wires(path, kind)

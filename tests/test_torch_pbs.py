@@ -1,9 +1,13 @@
-"""helm_tpu_torch.fhe.pbs / ops.mb_pbs against helm_tpu.fhe.pbs_jnp.
+"""helm_tpu_torch.fhe.pbs / ops.mb_pbs / ops.sb_pbs against helm_tpu.
 
-Same keys and the same ciphertexts (numpy, fixed seeds) through the jnp
-reference and through the port on CPU tensors; the words must be equal
-(zero tolerance — the pipeline is exact integer arithmetic). pbs_jnp is
-the reference that tests/test_pallas.py pins the TPU kernels to.
+Same keys (the reference's, carried across with
+`server_key_from_reference`) and the same ciphertexts (numpy, fixed
+seeds) through the jnp reference and through the port on CPU tensors; the
+words must be equal (zero tolerance — the pipeline is exact integer
+arithmetic). pbs_jnp is the reference that tests/test_pallas.py pins the
+TPU kernels to; the single-bit plain version is also held against the two
+TPU kernels it replaces, run in interpret mode as tests/test_pallas.py
+runs them.
 """
 
 import jax.numpy as jnp
@@ -17,7 +21,8 @@ from helm_tpu.fhe import ops as ref_ops
 from helm_tpu.fhe.server_key import gen_server_key
 from helm_tpu_torch.fhe import pbs
 from helm_tpu_torch.fhe.ntt import to_host, words
-from helm_tpu_torch.ops import mb_pbs
+from helm_tpu_torch.fhe.server_key import server_key_from_reference
+from helm_tpu_torch.ops import mb_pbs, sb_pbs
 
 SETS = {
     "k3": (P.TEST_PARAMS_K3, 31),
@@ -36,7 +41,7 @@ def keys():
         out[name] = (
             ck,
             pbs_jnp.DeviceServerKey.from_host(sk),
-            pbs.DeviceServerKey.from_host(sk, "cpu"),
+            pbs.DeviceServerKey.from_host(server_key_from_reference(sk), "cpu"),
         )
     return out
 
@@ -71,6 +76,31 @@ def test_blind_rotate_g1_matches_jnp(keys):
     tv = _testv(ck.params, 3, rng, False)
     ref = np.asarray(pbs_jnp.blind_rotate(jdsk, jnp.asarray(x), jnp.asarray(tv)))
     np.testing.assert_array_equal(to_host(pbs.blind_rotate(tdsk, words(x), words(tv))), ref)
+    # the wrapper takes the plain path for CPU tensors, per-gate test polys too
+    tv = _testv(ck.params, 3, rng, True)
+    ref = np.asarray(pbs_jnp.blind_rotate(jdsk, jnp.asarray(x), jnp.asarray(tv)))
+    np.testing.assert_array_equal(to_host(sb_pbs.blind_rotate_sb(tdsk, words(x), words(tv))), ref)
+
+
+@pytest.mark.parametrize("kernel", ["blind_rotate_pallas", "blind_rotate_mxu"])
+def test_blind_rotate_sb_plain_matches_tpu_kernel(keys, kernel):
+    """K2's plain version against the TPU kernel it replaces (K2b, K2a),
+    interpret mode, TEST_PARAMS, G=4."""
+    from helm_tpu.ops import mxu_pbs, pallas_pbs
+
+    ck, jdsk, tdsk = keys["g1"]
+    p = ck.params
+    x, _ = _ctxts(ck, 4, 17)
+    tv = jnp.asarray(pbs_jnp.gates_test_poly(p))
+    if kernel == "blind_rotate_pallas":
+        bsk, bsk_sh = jdsk.bsk_ntt, jdsk.bsk_ntt_sh
+        fn = pallas_pbs.blind_rotate_pallas
+    else:
+        bsk, bsk_sh = mxu_pbs.mxu_server_key(jdsk)
+        fn = mxu_pbs.blind_rotate_mxu
+    ref = np.asarray(fn(p, bsk, bsk_sh, jnp.asarray(x), tv, g_tile=4, interpret=True))
+    got = to_host(sb_pbs.blind_rotate_sb(tdsk, words(x), words(pbs.gates_test_poly(p))))
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("name", ["k3"])
@@ -139,9 +169,14 @@ def test_test_polys_are_the_reference_ones():
 
 
 def test_cuda_g1_raises_naming_k2(keys):
-    """Off the CPU a grouping-1 set raises naming K2 instead of falling
-    back to the plain path (a meta tensor stands in for the card)."""
+    """Off the CPU the single-bit wrapper launches its kernel or raises: it
+    never falls back to the plain path (a meta tensor stands in for a
+    device with no kernel). K1 refuses grouping-1 keys on any device."""
     _, _, tdsk = keys["g1"]
     x = torch.zeros((2, tdsk.params.n + 1), dtype=torch.int64, device="meta")
-    with pytest.raises(NotImplementedError, match="K2"):
+    with pytest.raises(NotImplementedError, match="blind_rotate_sb"):
+        sb_pbs.blind_rotate_sb(tdsk, x, x)
+    with pytest.raises(ValueError, match="grouping 1"):
         mb_pbs.blind_rotate_mb(tdsk, x, x)
+    with pytest.raises(ValueError, match="grouping 2"):
+        sb_pbs.blind_rotate_sb(keys["mb2"][2], x, x)
