@@ -2,7 +2,7 @@
 """Smoke run of helm_tpu_torch, the PyTorch/CUDA port, on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # every phase, on cuda:0
-    python3 chip_smoke.py --only device,build,k1,k2
+    python3 chip_smoke.py --only device,build,k1,k6
 
 Phases, in order (each prints one line, with its seconds):
   device  the card's name and power limit (nvidia-smi), torch / CUDA versions
@@ -12,9 +12,18 @@ Phases, in order (each prints one line, with its seconds):
           version on the card, at TEST_PARAMS_K3, at tiny sets with N=1024,
           N=2048 and grouping 4, at GATES_128_K3 at the main path's widths
           (G=8 to 1024, ragged G=37 and 200) and at LUT_128_K2 (k=2, N=1024,
-          9 gadget rows) at the LUT adder's level width and G=256: the words
-          must be equal (tolerance 0, the arithmetic is exact); prints both
-          times
+          9 gadget rows) at the LUT adder's level width and G=256, and at
+          ARITH_128_MB2 (N=2048, 6 rows, PRIMES with 65537) at a narrow
+          merged-round width (G=8) and a wide one (G=1024): the words must be
+          equal (tolerance 0, the arithmetic is exact); prints both times
+  k6      the prime-split blind-rotation kernel (K6) against its plain torch
+          version (blind_rotate_prime_split) the same way, at TEST_PARAMS_K3,
+          a tiny grouping-4 set, GATES_128_K3 at K1's widths, LUT_128_K2
+          at G=2 and 256 and ARITH_128_MB2 at G=8 and 1024. Where k1 ran the
+          same inputs, K6 is held against k1's plain output (the two plain
+          versions are equal word for word, tests/test_torch_ps.py); the
+          plain prime-split version itself runs on the card at the tiny sets
+          and at GATES_128_K3 G=1024, and must equal k1's words there too
   k2      the single-bit blind-rotation kernel (K2) against its plain torch
           version the same way, at TEST_PARAMS (N=64), TEST_PARAMS_LUT
           (N=128), a tiny k=3 grouping-1 set, GATES_TPU at G=1 to 1024,
@@ -33,23 +42,37 @@ Phases, in order (each prints one line, with its seconds):
   lut     main path: 8-bit-adder-lut-3-1 through BooleanEngine(mode="lut")
           at LUT_PARAMS (K2) and LUT_128_K2 (K1), against its golden CSV and
           the oracle; s/vector for each set
+  arith   main path: chi_squared_arith.v u32 through ArithEngine at
+          ARITH_128_MB2 (K1) for the four recorded vector sets
+          chi_squared_arith_{1..4}, one vector at a time, then as one batch
+          of 4: each against its golden CSV and the Circuit.evaluate_arith
+          oracle; s/vector, merged rounds and slots
+  ps      main path under HELM_TPU_MB_KERNEL=ps (K6): the G=1024 AND batch
+          and c880-like at GATES_128_K3 (truth table, golden CSV + oracle);
+          K6 must launch and K1 must not. Then one G=37 AND batch under
+          HELM_TPU_MB_KERNEL=hb2, which must launch K1
   cli     python -m helm_tpu_torch.cli --device cuda (default sets) on the
-          2-bit adder and the LUT adder must reproduce their golden CSVs
+          2-bit adder, the LUT adder and chi-squared u32 (-a u32,
+          chi_squared_arith_1) must reproduce their golden CSVs
   profile torch.profiler over one G=1024 bootstrap batch and one c880-like
-          vector at GATES_128_K3, and one c880-like vector at GATES_TPU:
-          device time by kernel and the device's idle share
+          vector at GATES_128_K3 (K1, then K6 under HELM_TPU_MB_KERNEL=ps),
+          one c880-like vector at GATES_TPU and one chi-squared u32 vector
+          at ARITH_128_MB2: device time by kernel and the device's idle share
 
 The kernels' launch counters are set to 0 just before each main-path phase
-(batch, c880, g1, lut) and read just after it; the kernel JSON line reports
-the sums. A kernel's bound_ms is the larger of its integer operations over
-the card's INT32 rate and its bytes over the memory rate (int_ops and
-min_bytes below). Exits non-zero on any failure, and when no CUDA device is
-present. Imports nothing of JAX and nothing of the JAX package.
+(batch, c880, g1, lut, arith, ps) and read just after it; the kernel JSON
+line reports the sums. A kernel's bound_ms is the larger of its integer
+operations over the card's INT32 rate and its bytes over the memory rate
+(int_ops and min_bytes below; K6 does K1's transforms and products and
+moves K1's bytes, its CRT fold taking Garner's place). Exits non-zero on
+any failure, and when no CUDA device is present. Imports nothing of JAX
+and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -60,9 +83,12 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "k1", "k2", "batch", "c880", "g1", "lut", "cli", "profile")
-MAIN_PATH = ("batch", "c880", "g1", "lut")
-KERNELS = ("blind_rotate_mb", "blind_rotate_sb")
+PHASES = (
+    "device", "build", "k1", "k6", "k2", "batch", "c880", "g1", "lut", "arith", "ps", "cli",
+    "profile",
+)
+MAIN_PATH = ("batch", "c880", "g1", "lut", "arith", "ps")
+KERNELS = ("blind_rotate_mb", "blind_rotate_sb", "blind_rotate_ps")
 
 #: H100 SXM peaks used for bound_ms: 132 SMs x 64 INT32 lanes x 1.98 GHz
 #: boost (the guide's table has no INT32 row; its 67 TFLOP/s FP32 is the
@@ -106,6 +132,21 @@ def bound_ms(p, G: int, testv_rows: int) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+@contextlib.contextmanager
+def _mb_kernel(name):
+    """HELM_TPU_MB_KERNEL=name inside the block (mb_pbs.mb_kernel reads it
+    at every bootstrap), restored after."""
+    old = os.environ.get("HELM_TPU_MB_KERNEL")
+    os.environ["HELM_TPU_MB_KERNEL"] = name
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("HELM_TPU_MB_KERNEL", None)
+        else:
+            os.environ["HELM_TPU_MB_KERNEL"] = old
+
+
 def _sync():
     import torch
 
@@ -143,16 +184,16 @@ def _ands(ck, G, seed):
     return lin, b1 & b2
 
 
-def _golden(name):
+def _golden(name, kind="bool"):
     from helm_tpu_torch.io import csv_io
 
-    return csv_io.read_input_wires(os.path.join(ROOT, "benchmarks/test-cases", name), "bool")
+    return csv_io.read_input_wires(os.path.join(ROOT, "benchmarks/test-cases", name), kind)
 
 
-def _netlist(name):
+def _netlist(name, arith=False):
     from helm_tpu_torch.circuit.verilog import read_verilog_file
 
-    return read_verilog_file(os.path.join(ROOT, "benchmarks/netlists", name))
+    return read_verilog_file(os.path.join(ROOT, "benchmarks/netlists", name), arith)
 
 
 def _oracle(nl, inputs, cycles=1):
@@ -163,6 +204,14 @@ def _oracle(nl, inputs, cycles=1):
     for _ in range(cycles):
         st = c.evaluate(st)
     return {w: bool(st[w]) for w in nl.outputs}
+
+
+def _oracle_arith(nl, inputs, width):
+    from helm_tpu_torch.circuit.graph import Circuit
+
+    c = Circuit.from_netlist(nl)
+    vals = c.evaluate_arith(c.initialize_wire_map(nl.wire_set, inputs, default=0), width)
+    return {w: vals[w] for w in nl.outputs}
 
 
 def _same(out, exp):
@@ -187,11 +236,21 @@ class Smoke:
                 "source": "helm_tpu_torch/csrc/blind_rotate_sb.cu",
                 "replaces": "helm_tpu/ops/mxu_pbs.py:1652",
             },
+            "blind_rotate_ps": {
+                "name": "blind_rotate_ps",
+                "route": "cuda",
+                "source": "helm_tpu_torch/csrc/blind_rotate_ps.cu",
+                "replaces": "helm_tpu/ops/mxu_pbs.py:2425",
+            },
         }
         for k in self.kernel.values():
             k.update(launches=0, max_abs_err=None, ms=None, plain_ms=None,
                      bound_ms=None, bound_by=None, library_ms=None)
         self.card = ""
+        #: kernel inputs and plain outputs by (set, G, per-gate test polys):
+        #: (lwe_in, testv, plain ms, words), so that K1 and K6, which
+        #: compute one function, share them
+        self.plain = {}
 
     def keys_for(self, params, seed):
         from helm_tpu_torch.fhe import lwe, pbs
@@ -228,27 +287,40 @@ class Smoke:
         return f"helm_tpu_torch/csrc/{{{','.join(KERNELS)}}}.cu -> {build.BUILD_DIR.name}/"
 
     def _check_kernel(self, name, label, plain, kernel, cases, timed):
-        """Hold `kernel` against `plain` word for word on every case
-        (params, seed, G, per-gate testv); record the timed case's numbers."""
+        """Hold `kernel` against the plain words word for word on every case
+        (params, seed, Gs, per-gate testv, Gs where `plain` runs even when
+        another kernel's plain version already ran these inputs, and must
+        agree with it); record the timed case's numbers."""
         import numpy as np
+        import torch
 
         from helm_tpu_torch.fhe import pbs
         from helm_tpu_torch.fhe.ntt import words
 
         worst = 0
         notes = []
-        for params, seed, gs, per_gate in cases:
+        for params, seed, gs, per_gate, fresh in cases:
             ck, _, dsk = self.keys_for(params, seed)
             for G in gs:
-                lin, _ = _ands(ck, G, 100 + G)
-                x = words(lin, self.device)
-                if per_gate:
-                    rng = np.random.default_rng(G)
-                    tv = words(rng.integers(0, 1 << 32, size=(G, params.N), dtype=np.uint64)
-                               .astype(np.uint32), self.device)
+                key = (params.name, G, per_gate)
+                if key in self.plain:  # the same inputs as the earlier kernel's
+                    x, tv, plain_ms, ref = self.plain[key]
                 else:
-                    tv = words(pbs.gates_test_poly(params), self.device)
-                plain_ms, ref = _time_ms(lambda: plain(dsk, x, tv), warm=False)
+                    lin, _ = _ands(ck, G, 100 + G)
+                    x = words(lin, self.device)
+                    if per_gate:
+                        rng = np.random.default_rng(G)
+                        tv = words(rng.integers(0, 1 << 32, size=(G, params.N), dtype=np.uint64)
+                                   .astype(np.uint32), self.device)
+                    else:
+                        tv = words(pbs.gates_test_poly(params), self.device)
+                if key not in self.plain or G in fresh:
+                    plain_ms, ref = _time_ms(lambda: plain(dsk, x, tv), warm=False)
+                    if key in self.plain:
+                        assert torch.equal(ref, self.plain[key][3]), (
+                            f"{plain.__name__} != the earlier plain version at {params.name} G={G}"
+                        )
+                    self.plain[key] = (x, tv, plain_ms, ref)
                 ms, got = _time_ms(lambda: kernel(dsk, x, tv), reps=3)
                 err = int((got - ref).abs().max().item())
                 worst = max(worst, err)
@@ -282,20 +354,43 @@ class Smoke:
         # or 32 slots for one vector and 64-256 for a batch of 8, the AND
         # batch is 1024; 37 and 200 are ragged against the gate chunks.
         # LUT_128_K2 (k=2, 9 rows, N=1024): the LUT adder's levels are 2
-        # slots wide, each with its own test polynomial
+        # slots wide, each with its own test polynomial. ARITH_128_MB2 (6
+        # rows x 2048 words: 48 KB per decompose block): chi-squared u32's
+        # merged rounds, each slot with its group's test polynomial
         wide = (
             dataclasses.replace(P.TEST_PARAMS_K3, name="test_tiny_k3_n1024", N=1024),
             dataclasses.replace(P.TEST_PARAMS_MB, name="test_tiny_mb2_n2048", N=2048),
             P.TEST_PARAMS_MB4,
         )
         cases = (
-            (P.TEST_PARAMS_K3, 7, (5, 37), False),
-            *((w, 9, (5,), False) for w in wide),
-            (P.GATES_128_K3, 2024, (8, 16, 32, 37, 64, 128, 200, 256, 1024), False),
-            (P.LUT_128_K2, 2025, (2, 256), True),
+            (P.TEST_PARAMS_K3, 7, (5, 37), False, ()),
+            *((w, 9, (5,), False, ()) for w in wide),
+            (P.GATES_128_K3, 2024, (8, 16, 32, 37, 64, 128, 200, 256, 1024), False, ()),
+            (P.LUT_128_K2, 2025, (2, 256), True, ()),
+            (P.ARITH_128_MB2, 2030, (8, 1024), True, ()),
         )
         return self._check_kernel(
             "blind_rotate_mb", "K1", pbs.blind_rotate_multibit, mb_pbs.blind_rotate_mb,
+            cases, ("gates_128_k3", 1024),
+        )
+
+    def phase_k6(self):
+        from helm_tpu_torch import params as P
+        from helm_tpu_torch.fhe import pbs
+        from helm_tpu_torch.ops import ps_pbs
+
+        # every set K1 is checked at, and the widths of the main paths K6
+        # takes under HELM_TPU_MB_KERNEL=ps (c880-like levels of 8-32
+        # slots, the AND batch) and of the LUT adder and chi-squared u32
+        cases = (
+            (P.TEST_PARAMS_K3, 7, (5, 37), False, (5, 37)),
+            (P.TEST_PARAMS_MB4, 9, (5,), False, (5,)),
+            (P.GATES_128_K3, 2024, (8, 16, 32, 37, 64, 128, 200, 256, 1024), False, (1024,)),
+            (P.LUT_128_K2, 2025, (2, 256), True, ()),
+            (P.ARITH_128_MB2, 2030, (8, 1024), True, ()),
+        )
+        return self._check_kernel(
+            "blind_rotate_ps", "K6", pbs.blind_rotate_prime_split, ps_pbs.blind_rotate_ps,
             cases, ("gates_128_k3", 1024),
         )
 
@@ -314,19 +409,19 @@ class Smoke:
         # slots wide
         k3_g1 = dataclasses.replace(P.TEST_PARAMS_K3, name="test_tiny_k3_g1", grouping=1)
         cases = (
-            (P.TEST_PARAMS, 11, (5, 37), False),
-            (P.TEST_PARAMS_LUT, 12, (5,), True),
-            (k3_g1, 13, (5,), False),
-            (P.GATES_TPU, 2026, (1, 2, 4, 8, 16, 32, 37, 64, 128, 256, 1024), False),
-            (P.GATES_PARAMS, 2027, (37,), False),
-            (P.LUT_PARAMS, 2028, (2, 37), True),
+            (P.TEST_PARAMS, 11, (5, 37), False, ()),
+            (P.TEST_PARAMS_LUT, 12, (5,), True, ()),
+            (k3_g1, 13, (5,), False, ()),
+            (P.GATES_TPU, 2026, (1, 2, 4, 8, 16, 32, 37, 64, 128, 256, 1024), False, ()),
+            (P.GATES_PARAMS, 2027, (37,), False, ()),
+            (P.LUT_PARAMS, 2028, (2, 37), True, ()),
         )
         return self._check_kernel(
             "blind_rotate_sb", "K2", pbs.blind_rotate, sb_pbs.blind_rotate_sb,
             cases, ("gates_tpu_v32", 1024),
         )
 
-    def _and_batch(self, p, seed, iters=5):
+    def _and_batch(self, p, seed, G=1024, iters=5):
         import torch
 
         from helm_tpu_torch.fhe import lwe, pbs
@@ -334,13 +429,12 @@ class Smoke:
         from helm_tpu_torch.ops import mb_pbs
 
         ck, _, dsk = self.keys_for(p, seed)
-        G = 1024
         lin, exp = _ands(ck, G, 0)
         x = words(lin, self.device)
         tv = words(pbs.gates_test_poly(p), self.device)
         out = mb_pbs.bootstrap(dsk, x, tv)
         got = lwe.decode_bool(lwe.decrypt_phase(ck, to_host(out)))
-        assert (got == exp).all(), f"{p.name} G=1024 AND batch decrypts wrong"
+        assert (got == exp).all(), f"{p.name} G={G} AND batch decrypts wrong"
         _sync()
         t0 = time.perf_counter()
         for _ in range(iters):
@@ -454,6 +548,70 @@ class Smoke:
             )
         return "8-bit-adder-lut-3-1: " + "; ".join(notes)
 
+    def phase_arith(self):
+        import numpy as np
+
+        from helm_tpu_torch import ArithEngine
+        from helm_tpu_torch import params as P
+        from helm_tpu_torch.engines import radix
+
+        p = P.ARITH_128_MB2
+        ck, sk, _ = self.keys_for(p, 2030)
+        nl = _netlist("chi_squared_arith.v", arith=True)
+        eng = ArithEngine("u32", params=p, keys=(ck, sk), device=self.device)
+        eng.compile(nl)
+        sets = [
+            (_golden(f"chi_squared_arith_{i}.inputs.csv", "u32"),
+             _golden(f"chi_squared_arith_{i}.outputs.csv", "u32"))
+            for i in range(1, 5)
+        ]
+
+        def run(inputs):
+            wires = eng.encrypt_inputs(inputs)
+            l0, s0 = radix.LAUNCHES[0], radix.SLOTS[0]
+            _sync()
+            t0 = time.perf_counter()
+            out = eng.evaluate(wires)
+            _sync()
+            dt = time.perf_counter() - t0
+            return eng.decrypt_outputs(out), dt, radix.LAUNCHES[0] - l0, radix.SLOTS[0] - s0
+
+        notes = []
+        times = []
+        for i, (inputs, golden) in enumerate(sets, 1):
+            got, dt, rounds, slots = run(inputs)
+            assert got == golden, f"chi-squared u32 set {i} {got} != golden {golden}"
+            assert got == _oracle_arith(nl, inputs, 32), f"chi-squared u32 set {i} differs from the oracle"
+            times.append(dt)
+            notes.append(f"set {i}: {dt:.6f} s, {rounds} merged rounds, {slots} slots")
+        got, dt, rounds, slots = run([inputs for inputs, _ in sets])
+        for i, (g, (_, golden)) in enumerate(zip(got, sets), 1):
+            assert g == golden, f"chi-squared u32 batch vector {i} {g} != golden {golden}"
+        return (
+            f"{p.name} chi_squared u32, golden CSVs + oracle ok: {float(np.mean(times)):.6f} s/vector "
+            f"one at a time ({'; '.join(notes)}); batch of 4 ok, {dt / 4:.6f} s/vector, "
+            f"{rounds} merged rounds, {slots} slots"
+        )
+
+    def phase_ps(self):
+        from helm_tpu_torch import params as P
+        from helm_tpu_torch.ops import mb_pbs, ps_pbs
+
+        notes = []
+        with _mb_kernel("ps"):
+            assert mb_pbs.mb_kernel() == "ps"
+            notes.append(self._and_batch(P.GATES_128_K3, 2024))
+            notes.append(self._c880(P.GATES_128_K3, 2024))
+        k6 = ps_pbs.blind_rotate_ps.launches
+        assert k6 > 0, "HELM_TPU_MB_KERNEL=ps never launched K6"
+        assert mb_pbs.blind_rotate_mb.launches == 0, "HELM_TPU_MB_KERNEL=ps launched K1"
+        notes.append(f"K6 launches {k6}, K1 launches 0")
+        with _mb_kernel("hb2"):
+            notes.append("hb2: " + self._and_batch(P.GATES_128_K3, 2024, G=37, iters=1))
+        assert mb_pbs.blind_rotate_mb.launches > 0, "HELM_TPU_MB_KERNEL=hb2 never launched K1"
+        assert ps_pbs.blind_rotate_ps.launches == k6, "HELM_TPU_MB_KERNEL=hb2 launched K6"
+        return "HELM_TPU_MB_KERNEL=ps: " + "; ".join(notes)
+
     def phase_profile(self):
         import torch
         from torch.autograd import DeviceType
@@ -472,6 +630,22 @@ class Smoke:
             vec = eng.encrypt_inputs(_golden("c880-like.inputs.csv"))
             return lambda: eng.evaluate(vec)
 
+        def under_ps(fn):
+            def run():
+                with _mb_kernel("ps"):
+                    return fn()
+
+            return run
+
+        def chi_squared_vector(p, seed):
+            from helm_tpu_torch import ArithEngine
+
+            ck, sk, _ = self.keys_for(p, seed)
+            eng = ArithEngine("u32", params=p, keys=(ck, sk), device=self.device)
+            eng.compile(_netlist("chi_squared_arith.v", arith=True))
+            vec = eng.encrypt_inputs(_golden("chi_squared_arith_1.inputs.csv", "u32"))
+            return lambda: eng.evaluate(vec)
+
         p = P.GATES_128_K3
         ck, _, dsk = self.keys_for(p, 2024)
         lin, _ = _ands(ck, 1024, 0)
@@ -480,7 +654,9 @@ class Smoke:
         runs = {
             "gates_128_k3 batch1024": lambda: mb_pbs.bootstrap(dsk, x, tv),
             "gates_128_k3 c880_vector": c880_vector(p, 2024),
+            "gates_128_k3 c880_vector under ps": under_ps(c880_vector(p, 2024)),
             "gates_tpu_v32 c880_vector": c880_vector(P.GATES_TPU, 2026),
+            "arith_128_mb2 chi_squared_u32_vector": chi_squared_vector(P.ARITH_128_MB2, 2030),
         }
         notes = []
         for name, fn in runs.items():
@@ -512,9 +688,10 @@ class Smoke:
         from helm_tpu_torch.io import csv_io
 
         notes = []
-        for net, inputs, golden in (
-            ("2-bit-adder", "2-bit-adder.inputs.csv", "2-bit-adder.outputs.csv"),
-            ("8-bit-adder-lut-3-1", "8-bit-adder.inputs.csv", "8-bit-adder-lut-3-1.outputs.csv"),
+        for net, inputs, golden, kind in (
+            ("2-bit-adder", "2-bit-adder.inputs.csv", "2-bit-adder.outputs.csv", "bool"),
+            ("8-bit-adder-lut-3-1", "8-bit-adder.inputs.csv", "8-bit-adder-lut-3-1.outputs.csv", "bool"),
+            ("chi_squared_arith", "chi_squared_arith_1.inputs.csv", "chi_squared_arith_1.outputs.csv", "u32"),
         ):
             with tempfile.TemporaryDirectory() as td:
                 out = os.path.join(td, "out.csv")
@@ -524,6 +701,7 @@ class Smoke:
                         "-v", f"benchmarks/netlists/{net}.v",
                         "-i", f"benchmarks/test-cases/{inputs}",
                         "-o", out, "--device", self.device,
+                        *(["-a", kind] if kind != "bool" else []),
                     ],
                     cwd=ROOT, capture_output=True, text=True, timeout=600,
                 )
@@ -531,10 +709,10 @@ class Smoke:
                     raise AssertionError(
                         f"CLI failed on {net} ({res.returncode}):\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}"
                     )
-                got = csv_io.read_input_wires(out, "bool")
-            exp = _golden(golden)
+                got = csv_io.read_input_wires(out, kind)
+            exp = _golden(golden, kind)
             assert got == exp, f"CLI outputs on {net} {got} != golden {exp}"
-            notes.append(f"{net} --device cuda reproduces {golden}")
+            notes.append(f"{net}{'' if kind == 'bool' else ' -a ' + kind} --device cuda reproduces {golden}")
         return "; ".join(notes)
 
 
@@ -555,12 +733,17 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
     smoke = Smoke("cuda")
-    from helm_tpu_torch.ops import mb_pbs, sb_pbs
+    from helm_tpu_torch.ops import mb_pbs, ps_pbs, sb_pbs
 
-    wrappers = {"blind_rotate_mb": mb_pbs.blind_rotate_mb, "blind_rotate_sb": sb_pbs.blind_rotate_sb}
+    wrappers = {
+        "blind_rotate_mb": mb_pbs.blind_rotate_mb,
+        "blind_rotate_sb": sb_pbs.blind_rotate_sb,
+        "blind_rotate_ps": ps_pbs.blind_rotate_ps,
+    }
     #: the kernels each main-path phase must launch
     expect = {"batch": ("blind_rotate_mb",), "c880": ("blind_rotate_mb",),
-              "g1": ("blind_rotate_sb",), "lut": KERNELS}
+              "g1": ("blind_rotate_sb",), "lut": ("blind_rotate_mb", "blind_rotate_sb"),
+              "arith": ("blind_rotate_mb",), "ps": ("blind_rotate_ps", "blind_rotate_mb")}
     for name in PHASES:
         if name not in only:
             continue

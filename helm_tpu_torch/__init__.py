@@ -12,12 +12,14 @@ Top-level API (lazy imports — `import helm_tpu_torch` stays cheap):
     helm_tpu_torch.read_verilog_file(path, is_arith)   netlist frontend
     helm_tpu_torch.Circuit                             scheduler + plaintext oracle
     helm_tpu_torch.BooleanEngine                       gates and LUT modes on a torch device
+    helm_tpu_torch.ArithEngine                         arith mode (radix integers) on a torch device
     helm_tpu_torch.params                              parameter sets (ALL_PARAMS)
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 __all__ = [
+    "ArithEngine",
     "BooleanEngine",
     "Circuit",
     "params",
@@ -26,6 +28,10 @@ __all__ = [
 
 
 def __getattr__(name):
+    if name == "ArithEngine":
+        from .engines.arith import ArithEngine
+
+        return ArithEngine
     if name == "BooleanEngine":
         from .engines.boolean import BooleanEngine
 

@@ -110,3 +110,28 @@ def evaluate_ptxt(gate: Gate, input_values: list) -> object:
         assert gate.lut_const is not None, f"LUT const missing on {gate.name}"
         return (gate.lut_const[idx] & 1) > 0
     raise AssertionError(f"gate type {t} has no boolean plaintext semantics")
+
+
+def evaluate_arith_ptxt(gate: Gate, a: int, b: int | None, width: int) -> int:
+    """Arithmetic plaintext semantics, wrapping at 2^width
+    (reference: src/gates.rs:306-702 via native Rust integer ops)."""
+    mask = (1 << width) - 1
+    t = gate.type
+    if t == GateType.COPY:
+        return a & mask
+    assert b is not None
+    if t == GateType.ADD:
+        return (a + b) & mask
+    if t == GateType.SUB:
+        return (a - b) & mask
+    if t == GateType.MULT:
+        return (a * b) & mask
+    if t == GateType.DIV:
+        # div-by-zero yields all-ones (restoring-division semantics; the
+        # encrypted engine behaves identically)
+        return (a // b) & mask if b else mask
+    if t == GateType.SHL:
+        return (a << b) & mask if b < width else 0
+    if t == GateType.SHR:
+        return (a >> b) & mask if b < width else 0
+    raise AssertionError(f"not an arithmetic gate: {t}")

@@ -22,7 +22,7 @@ the tests/test_torch_*.py files hold it against the original.
 from __future__ import annotations
 
 
-from .gates import Gate, GateType, evaluate_ptxt
+from .gates import Gate, GateType, evaluate_arith_ptxt, evaluate_ptxt
 from .verilog import Netlist
 
 
@@ -174,5 +174,28 @@ class Circuit:
             for g in gates:
                 ins = [values[w] for w in g.inputs]
                 updates[g.output] = evaluate_ptxt(g, ins)
+            values.update(updates)
+        return values
+
+    def evaluate_arith(self, wire_map: dict, width: int) -> dict:
+        """Arithmetic plaintext evaluation (oracle for arith mode).
+
+        The reference has no arith oracle (gates.rs:182-188 unreachable!)
+        and tests against recorded CSVs; we provide one so every mode can be
+        checked against plaintext.
+        """
+        values = dict(wire_map)
+        for _, gates in self.levels:
+            updates = {}
+            for g in gates:
+                ops = []
+                for w in g.inputs:
+                    if _is_numeric(w):
+                        ops.append(int(w))
+                    else:
+                        ops.append(values[w])
+                a = ops[0]
+                b = ops[1] if len(ops) > 1 else None
+                updates[g.output] = evaluate_arith_ptxt(g, a, b, width)
             values.update(updates)
         return values

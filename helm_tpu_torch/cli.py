@@ -1,18 +1,22 @@
-"""helm-tpu-torch CLI — the reference flags, gates and LUT modes, on a
-torch device.
+"""helm-tpu-torch CLI — the reference flags, gates, LUT and arith modes,
+on a torch device.
 
-Counterpart of `helm_tpu/cli.py` (`main`, `_run_boolean`): the same
-netlist / input / output / cycles flags and parameter-set selection, plus
-`--device` (default `cuda`). A netlist with `lut` cells runs in LUT mode
-(default set DEFAULT_LUT, `--test-params` TEST_PARAMS_LUT), any other in
-gates mode (DEFAULT_GATES, TEST_PARAMS). A missing device is an error,
-never a quiet switch to the CPU. Arithmetic mode is not ported yet and
-exits with a pointer to ROADMAP.md.
+Counterpart of `helm_tpu/cli.py` (`main`, `_run_boolean`, `_run_arith`):
+the same netlist / input / output / cycles / arithmetic flags and
+parameter-set selection, plus `--device` (default `cuda`). `-a TYPE` runs
+arith mode (default set DEFAULT_ARITH, `--test-params`
+TEST_PARAMS_ARITH); otherwise a netlist with `lut` cells runs in LUT mode
+(DEFAULT_LUT, TEST_PARAMS_LUT), any other in gates mode (DEFAULT_GATES,
+TEST_PARAMS). A missing device is an error, never a quiet switch to the
+CPU. `-I/--batch-input-files` is not ported yet and exits with a pointer
+to ROADMAP.md.
 
     python -m helm_tpu_torch.cli -v benchmarks/netlists/2-bit-adder.v \\
         -i benchmarks/test-cases/2-bit-adder.inputs.csv -o out.csv --device cuda
     python -m helm_tpu_torch.cli -v benchmarks/netlists/8-bit-adder-lut-3-1.v \\
         -i benchmarks/test-cases/8-bit-adder.inputs.csv --device cuda
+    python -m helm_tpu_torch.cli -v benchmarks/netlists/chi_squared_arith.v -a u32 \\
+        -i benchmarks/test-cases/chi_squared_arith_1.inputs.csv --device cuda
 """
 
 from __future__ import annotations
@@ -26,18 +30,18 @@ from .circuit.verilog import read_verilog_file
 from .io import csv_io
 
 
-def get_input_wire_map(args) -> dict:
-    """Reference src/lib.rs:113-179 (bool inputs)."""
+def get_input_wire_map(args, ptxt_type: str) -> dict:
+    """Reference src/lib.rs:113-179; ptxt_type is "bool" or an arith type."""
     if args.input_wires_file:
         print("[✓] Input wires were provided.")
-        return csv_io.read_input_wires(args.input_wires_file, "bool")
+        return csv_io.read_input_wires(args.input_wires_file, ptxt_type)
     if args.input_wires:
         print("[✓] Input wires were provided.")
         out = {}
         for parts in args.input_wires:
             if len(parts) == 2:
-                out[parts[0]] = csv_io.parse_input_wire(parts[1], "bool")
-            elif len(parts) == 3:
+                out[parts[0]] = csv_io.parse_input_wire(parts[1], ptxt_type)
+            elif len(parts) == 3 and ptxt_type == "bool":
                 width = int(parts[2])
                 bits = csv_io.hex_to_bitstring(parts[1].strip())[::-1]
                 for idx in range(width):
@@ -62,23 +66,27 @@ def build_argparser() -> argparse.ArgumentParser:
         help="Input wire values (-w wire1 value1 [width1] ...)",
     )
     ap.add_argument("-i", "--input-wires-file", metavar="FILE")
+    ap.add_argument(
+        "-I", "--batch-input-files", nargs="+", metavar="FILE",
+        help="several input CSVs evaluated in one batched pass (not ported yet)",
+    )
     ap.add_argument("-o", "--output-wires-file", metavar="FILE")
     ap.add_argument(
         "-a", "--arithmetic", choices=["u8", "u16", "u32", "u64", "u128"],
-        help="arithmetic mode (not ported yet)",
+        help="arithmetic mode: wires are encrypted radix integers of this width",
     )
     ap.add_argument("-c", "--cycles", type=int, default=1, metavar="NUMBER")
     ap.add_argument("-p", "--verbose", action="store_true")
     ap.add_argument(
         "--test-params", action="store_true",
-        help="tiny noise-free parameters (test_tiny, or test_tiny_lut for "
-        "LUT netlists)",
+        help="tiny noise-free parameters (test_tiny; test_tiny_lut for "
+        "LUT netlists; test_tiny_arith with -a)",
     )
     ap.add_argument("--seed", type=int, default=None, help="key RNG seed")
     ap.add_argument(
         "--params", metavar="NAME",
         help="named parameter set (helm_tpu_torch.params.ALL_PARAMS), e.g. "
-        "gates_tpu_v32 (single-bit) or gates_128_k3 (multi-bit)",
+        "gates_tpu_v32 (single-bit), gates_128_k3 or arith_128_mb2 (multi-bit)",
     )
     ap.add_argument(
         "--keys", metavar="DIR",
@@ -119,26 +127,29 @@ def main(argv=None) -> int:
             f"--device {args.device}: no CUDA device is available "
             "(pass --device cpu to run the plain torch versions)"
         )
-    if args.arithmetic:
+    if args.batch_input_files:
         raise SystemExit(
-            "arithmetic mode is not ported yet (ROADMAP.md queue 1 item 6); "
-            "use python -m helm_tpu.cli"
+            "-I/--batch-input-files is not ported yet (ROADMAP.md queue 1 item 7); "
+            "the engines take a list of input maps"
         )
-    netlist = read_verilog_file(args.verilog, False)
+    if args.arithmetic and args.cycles > 1:
+        raise SystemExit(
+            "Arithmetic does not currently support sequential. Set num_cycles to 1."
+        )
+    netlist = read_verilog_file(args.verilog, args.arithmetic is not None)
     is_sequential = len(netlist.dff_outputs) > 1  # quirk kept: helm.rs:49
     if args.cycles > 1 and not is_sequential:
         raise SystemExit("[!] Cannot run combinational circuit for more than one cycles.")
+    if args.arithmetic:
+        return _run_arith(args, netlist, device)
     return _run_boolean(args, netlist, device)
 
 
-def _run_boolean(args, netlist, device) -> int:
+def _params_and_keys(args, test_params, default, device):
+    """The parameter set (--params, else --test-params' set, else the
+    mode's default) and, with --keys DIR, its loaded or generated keys."""
     from . import params as P
-    from .engines.boolean import BooleanEngine
 
-    mode = "lut" if netlist.has_luts else "gates"
-    print(f" -- {'LUTs' if mode == 'lut' else 'Gates'} mode --")
-    input_wire_map = get_input_wire_map(args)
-    start = time.time()
     if args.params:
         if args.params not in P.ALL_PARAMS:
             raise SystemExit(
@@ -147,15 +158,30 @@ def _run_boolean(args, netlist, device) -> int:
             )
         params = P.ALL_PARAMS[args.params]
     elif args.test_params:
-        params = P.TEST_PARAMS if mode == "gates" else P.TEST_PARAMS_LUT
+        params = test_params
     else:
-        params = P.DEFAULT_GATES if mode == "gates" else P.DEFAULT_LUT
+        params = default
     keys = None
     if args.keys:
         from .fhe.keys import load_or_generate
 
         keys = load_or_generate(args.keys, params, args.seed, device)
         print(f"[✓] Keys ({params.name}) from {args.keys}.")
+    return params, keys
+
+
+def _run_boolean(args, netlist, device) -> int:
+    from . import params as P
+    from .engines.boolean import BooleanEngine
+
+    mode = "lut" if netlist.has_luts else "gates"
+    print(f" -- {'LUTs' if mode == 'lut' else 'Gates'} mode --")
+    input_wire_map = get_input_wire_map(args, "bool")
+    start = time.time()
+    if mode == "gates":
+        params, keys = _params_and_keys(args, P.TEST_PARAMS, P.DEFAULT_GATES, device)
+    else:
+        params, keys = _params_and_keys(args, P.TEST_PARAMS_LUT, P.DEFAULT_LUT, device)
     engine = BooleanEngine(
         mode=mode, params=params, seed=args.seed, keys=keys, device=device
     )
@@ -183,6 +209,38 @@ def _run_boolean(args, netlist, device) -> int:
         outputs = engine.decrypt_outputs(valid, from_valid=True)
     else:
         outputs = engine.decrypt_outputs(wires)
+    _print_outputs(outputs, args.verbose)
+    csv_io.write_output_wires(args.output_wires_file, outputs)
+    print(f"Decryption done in {time.time() - start} seconds.")
+    return 0
+
+
+def _run_arith(args, netlist, device) -> int:
+    from . import params as P
+    from .engines.arith import ArithEngine
+
+    print(f" -- Arithmetic mode with {args.arithmetic} --")
+    input_wire_map = get_input_wire_map(args, args.arithmetic)
+    start = time.time()
+    params, keys = _params_and_keys(args, P.TEST_PARAMS_ARITH, P.DEFAULT_ARITH, device)
+    engine = ArithEngine(
+        args.arithmetic, params=params, seed=args.seed, keys=keys, device=device
+    )
+    print(f"KeyGen done in {time.time() - start} seconds.")
+    engine.compile(netlist)
+
+    start = time.time()
+    wires = engine.encrypt_inputs(input_wire_map)
+    print(f"Encryption done in {time.time() - start} seconds.")
+
+    start = time.time()
+    wires = engine.evaluate(wires, verbose=args.verbose)
+    _sync(device)
+    print(f"Evaluation done in {time.time() - start} seconds.\n")
+
+    start = time.time()
+    print("Encrypted Evaluation:")
+    outputs = engine.decrypt_outputs(wires)
     _print_outputs(outputs, args.verbose)
     csv_io.write_output_wires(args.output_wires_file, outputs)
     print(f"Decryption done in {time.time() - start} seconds.")

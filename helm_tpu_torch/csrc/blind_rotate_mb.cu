@@ -39,8 +39,9 @@
 // the same residues. What remains is integer arithmetic (NTT butterflies
 // and the rows x (2^g-1) x (k+1) multiply-adds per frequency per gate), so
 // wide batches are bound by the SMs' integer throughput; narrow batches
-// (a single circuit vector: 8-32 gates) by the latency of the 3 x n/g
-// small launches.
+// (a single circuit vector: 8-32 gates) by the latency of each step's
+// chain of three small launches (the prime-split K6, one launch per step,
+// is slower there: its one block per (gate, prime) does the whole chain).
 //
 // Kernels 1 and 3 and the modular arithmetic live in pbs_common.cuh,
 // shared with the single-bit kernel K2 (blind_rotate_sb.cu). Every entry
@@ -54,15 +55,6 @@
 #include "pbs_common.cuh"
 
 namespace {
-
-// decompose_fwd's source: the bare accumulator, acc [G, k+1, N]
-struct AccWords {
-  const uint32_t* acc;
-  __device__ __forceinline__ uint32_t operator()(const Shape& S, int gate, int c,
-                                                 int coef) const {
-    return acc[((size_t)gate * S.kp1 + c) * S.N + coef];
-  }
-};
 
 // 2. pointwise products against the group's BSK slab; one thread per
 //    (prime, frequency), looping over a chunk of gates. NARROW (every

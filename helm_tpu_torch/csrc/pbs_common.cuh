@@ -1,18 +1,23 @@
 // Device code shared by the blind-rotation kernels (sm_90a):
-// blind_rotate_mb.cu (K1, multi-bit) and blind_rotate_sb.cu (K2,
-// single-bit). Each .cu builds into its own library, so everything here
-// sits in an anonymous namespace and is compiled once per kernel file.
+// blind_rotate_mb.cu (K1, multi-bit), blind_rotate_sb.cu (K2,
+// single-bit) and blind_rotate_ps.cu (K6, prime-split multi-bit). Each .cu
+// builds into its own library, so everything here sits in an anonymous
+// namespace and is compiled once per kernel file.
 //
-// What both kernels share:
+// What the kernels share:
 //   - the modular arithmetic of helm_tpu_torch/fhe/ntt.py (Shoup
 //     multiplies, Barrett reductions, Garner recombination);
-//   - decompose_fwd: signed gadget decomposition of the k+1 GLWE
-//     components of each gate (params.component_gadgets), digit residues
-//     mod one prime, forward NTT of every gadget row in shared memory. The
-//     words it decomposes come from a source functor: the bare accumulator
-//     for K1, (X^{a_i} - 1) * acc for K2;
-//   - inverse_garner: inverse NTT over the NP primes, Garner with the
-//     balanced lift, acc += result;
+//   - decompose_rows: signed gadget decomposition of the k+1 GLWE
+//     components of one gate (params.component_gadgets), digit residues
+//     mod one prime, into shared memory. The words it decomposes come
+//     from a source functor: the bare accumulator for K1 and K6,
+//     (X^{a_i} - 1) * acc for K2;
+//   - ntt_fwd_rows / ntt_inv_rows: the forward and inverse NTTs of rows
+//     in shared memory;
+//   - decompose_fwd (K1, K2): decompose_rows + the forward NTT of every
+//     gadget row, one (gate, prime) per block;
+//   - inverse_garner (K1, K2): inverse NTT over the NP primes, Garner with
+//     the balanced lift, acc += result;
 //   - the host-side unpacking and checking of the shape and the constants.
 
 #pragma once
@@ -98,16 +103,33 @@ __device__ __forceinline__ uint32_t garner(uint32_t r0, uint32_t r1, uint32_t r2
   return v3 > K.half_p3 ? x - K.prod_mod_q : x;        // balanced lift
 }
 
-// 1. gadget decomposition + forward NTT of every row, one (gate, prime)
-//    per block. Src(S, gate, c, coef) yields the u32 word of component c
-//    to decompose -> F [G, rows, NP, N].
+// The source of the words decompose_rows decomposes for K1 and K6: the
+// bare accumulator, acc [G, k+1, N]
+struct AccWords {
+  const uint32_t* acc;
+  __device__ __forceinline__ uint32_t operator()(const Shape& S, int gate, int c,
+                                                 int coef) const {
+    return acc[((size_t)gate * S.kp1 + c) * S.N + coef];
+  }
+};
+
+// Which prime a row of an NTT over several rows is reduced by: the row
+// itself (inverse_garner: one row per prime), or one prime for every row
+struct RowPrime {
+  __device__ __forceinline__ int operator()(int row) const { return row; }
+};
+struct FixedPrime {
+  int pi;
+  __device__ __forceinline__ int operator()(int) const { return pi; }
+};
+
+// Signed gadget decomposition of one gate's k+1 components
+// (params.component_gadgets), the digits reduced mod prime pi, into
+// buf [rows, N] in shared memory. Src(S, gate, c, coef) yields the u32
+// word of component c to decompose. The caller synchronises.
 template <class Src>
-__global__ void decompose_fwd(Src src, uint32_t* __restrict__ fbuf,
-                              const uint32_t* __restrict__ psi,
-                              const uint32_t* __restrict__ psi_sh, Shape S,
-                              Consts K) {
-  uint32_t* buf = reinterpret_cast<uint32_t*>(smem_raw);  // [rows, N]
-  const int gate = blockIdx.x, pi = blockIdx.y;
+__device__ __forceinline__ void decompose_rows(const Src& src, uint32_t* buf, int gate,
+                                               int pi, const Shape& S, const Consts& K) {
   const int N = S.N, logN = S.logN;
   const uint32_t p = K.p[pi], mu32 = K.mu32[pi];
   for (int idx = threadIdx.x; idx < S.kp1 * N; idx += blockDim.x) {
@@ -135,11 +157,21 @@ __global__ void decompose_fwd(Src src, uint32_t* __restrict__ fbuf,
       buf[(row0 + j) * N + coef] = reduce32((uint32_t)(d + 4 * (int)p), p, mu32);
     }
   }
+}
+
+// Forward NTT of rows [0, nrows) of buf [.., N] in shared memory, every
+// row mod prime pi: merged-psi Cooley-Tukey (fhe/ntt.py ntt_fwd), natural
+// -> bit-reversed. Starts and ends with a barrier.
+__device__ __forceinline__ void ntt_fwd_rows(uint32_t* buf, int nrows, int pi,
+                                             const uint32_t* __restrict__ psi,
+                                             const uint32_t* __restrict__ psi_sh,
+                                             const Shape& S, const Consts& K) {
   __syncthreads();
-  // merged-psi Cooley-Tukey (fhe/ntt.py ntt_fwd): natural -> bit-reversed
+  const int N = S.N, logN = S.logN;
+  const uint32_t p = K.p[pi];
   const uint32_t* w_t = psi + pi * N;
   const uint32_t* ws_t = psi_sh + pi * N;
-  const int half_n = N >> 1, total = S.rows * half_n;
+  const int half_n = N >> 1, total = nrows * half_n;
   int logt = logN;
   for (int m = 1; m < N; m <<= 1) {
     --logt;
@@ -155,6 +187,51 @@ __global__ void decompose_fwd(Src src, uint32_t* __restrict__ fbuf,
     }
     __syncthreads();
   }
+}
+
+// Inverse NTT of rows [0, nrows) of buf [.., N] in shared memory, row r
+// mod prime prime_of(r): Gentleman-Sande (fhe/ntt.py ntt_inv),
+// bit-reversed -> natural, without the final N^-1 scale (the callers
+// apply it as they read the residues). Starts and ends with a barrier.
+template <class PrimeOf>
+__device__ __forceinline__ void ntt_inv_rows(uint32_t* buf, int nrows, PrimeOf prime_of,
+                                             const uint32_t* __restrict__ psi_inv,
+                                             const uint32_t* __restrict__ psi_inv_sh,
+                                             const Shape& S, const Consts& K) {
+  __syncthreads();
+  const int N = S.N, logN = S.logN;
+  const int half_n = N >> 1, total = nrows * half_n;
+  int logt = 0;
+  for (int m = N; m > 1; m >>= 1) {
+    const int h = m >> 1, t = 1 << logt;
+    for (int bi = threadIdx.x; bi < total; bi += blockDim.x) {
+      const int row = bi >> (logN - 1), bb = bi & (half_n - 1);
+      const int i = bb >> logt, j = bb & (t - 1);
+      const int base = row * N + (i << (logt + 1)) + j;
+      const int pi = prime_of(row);
+      const uint32_t p = K.p[pi];
+      const uint32_t u = buf[base], w = buf[base + t];
+      buf[base] = add_mod(u, w, p);
+      buf[base + t] = mul_shoup(sub_mod(u, w, p), __ldg(psi_inv + pi * N + h + i),
+                                __ldg(psi_inv_sh + pi * N + h + i), p);
+    }
+    ++logt;
+    __syncthreads();
+  }
+}
+
+// 1. gadget decomposition + forward NTT of every row, one (gate, prime)
+//    per block -> F [G, rows, NP, N].
+template <class Src>
+__global__ void decompose_fwd(Src src, uint32_t* __restrict__ fbuf,
+                              const uint32_t* __restrict__ psi,
+                              const uint32_t* __restrict__ psi_sh, Shape S,
+                              Consts K) {
+  uint32_t* buf = reinterpret_cast<uint32_t*>(smem_raw);  // [rows, N]
+  const int gate = blockIdx.x, pi = blockIdx.y;
+  const int N = S.N, logN = S.logN;
+  decompose_rows(src, buf, gate, pi, S, K);
+  ntt_fwd_rows(buf, S.rows, pi, psi, psi_sh, S, K);
   uint32_t* out = fbuf + (size_t)gate * S.rows * NP * N + (size_t)pi * N;
   for (int idx = threadIdx.x; idx < S.rows * N; idx += blockDim.x) {
     const int r = idx >> logN, coef = idx & (N - 1);
@@ -171,28 +248,10 @@ __global__ void inverse_garner(uint32_t* __restrict__ acc,
                                Shape S, Consts K) {
   uint32_t* buf = reinterpret_cast<uint32_t*>(smem_raw);  // [NP, N]
   const int gate = blockIdx.x, c = blockIdx.y;
-  const int N = S.N, logN = S.logN, NPN = NP * N;
+  const int N = S.N, NPN = NP * N;
   const uint32_t* src = sbuf + ((size_t)gate * S.kp1 + c) * NPN;
   for (int idx = threadIdx.x; idx < NPN; idx += blockDim.x) buf[idx] = src[idx];
-  __syncthreads();
-  // Gentleman-Sande (fhe/ntt.py ntt_inv): bit-reversed -> natural; row = prime
-  const int half_n = N >> 1, total = NP * half_n;
-  int logt = 0;
-  for (int m = N; m > 1; m >>= 1) {
-    const int h = m >> 1, t = 1 << logt;
-    for (int bi = threadIdx.x; bi < total; bi += blockDim.x) {
-      const int row = bi >> (logN - 1), bb = bi & (half_n - 1);
-      const int i = bb >> logt, j = bb & (t - 1);
-      const int base = row * N + (i << (logt + 1)) + j;
-      const uint32_t p = K.p[row];
-      const uint32_t u = buf[base], w = buf[base + t];
-      buf[base] = add_mod(u, w, p);
-      buf[base + t] = mul_shoup(sub_mod(u, w, p), __ldg(psi_inv + row * N + h + i),
-                                __ldg(psi_inv_sh + row * N + h + i), p);
-    }
-    ++logt;
-    __syncthreads();
-  }
+  ntt_inv_rows(buf, NP, RowPrime{}, psi_inv, psi_inv_sh, S, K);
   uint32_t* dst = acc + ((size_t)gate * S.kp1 + c) * N;
   for (int coef = threadIdx.x; coef < N; coef += blockDim.x) {
     uint32_t r[NP];

@@ -5,8 +5,9 @@ tensor [W, n+1] (or [B, W, n+1] for a batch of B input vectors) on the
 engine's device; every level of the level plan (`circuit/plan.py`
 `build_plan`) runs as: gather the slot inputs, per-slot linear
 combination, ONE batched bootstrap over all slots (`ops.mb_pbs.bootstrap`:
-on the card the multi-bit kernel K1 for grouping > 1 and the single-bit
-kernel K2 for grouping 1, on the CPU their plain torch versions),
+on the card the multi-bit kernel K1, or K6 under HELM_TPU_MB_KERNEL=ps,
+for grouping > 1 and the single-bit kernel K2 for grouping 1, on the CPU
+their plain torch versions),
 scatter, MUX pairs, linear ops. In LUT mode each slot bootstraps with its
 own test polynomial (`testv_bank[testv_sel]`, tiled across a batch of
 input vectors) and wires carry messages m * delta instead of +-q/8.
@@ -127,7 +128,7 @@ class BooleanEngine:
             sk = gen_server_key(self.client_key, self.device)
         self.dsk = pbs.DeviceServerKey.from_host(sk, self.device)
         if self.device.type == "cuda":
-            mb_pbs.mb_server_key(self.dsk)  # the kernels' key layout, once, up front
+            mb_pbs.kernel_layouts(self.dsk)  # the kernels' key layouts, once, up front
         self.plan: CircuitPlan | None = None
         self._testv_gates = words(pbs.gates_test_poly(self.params), self.device)
         if mode == "lut":

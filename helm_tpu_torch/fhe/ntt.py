@@ -29,6 +29,7 @@ Gentleman-Sande (bit-reversed -> natural) with a final N^-1 scale.
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -196,6 +197,63 @@ def garner_to_u32(r: torch.Tensor, tab: NttTables) -> torch.Tensor:
     x = (v0 + p0 * ((v1 + p1 * ((v2 + p2 * v3) & M32)) & M32)) & M32
     # balanced lift: the true value is negative iff the top digit is large
     return torch.where(v3 > g.half_p3, (x - g.prod_mod_q) & M32, x)
+
+
+@dataclass(frozen=True)
+class CrtConstants:
+    """The CRT partial-sum fold's constants for one prime set: with P the
+    prime product and W_i = (P/p_i) * ((P/p_i)^-1 mod p_i), w_mod[i] is
+    W_i mod 2^32, frac[i] is W_i / P = ((P/p_i)^-1 mod p_i) / p_i as a
+    float64, prod_mod is P mod 2^32."""
+
+    primes: tuple
+    w_mod: tuple
+    frac: tuple
+    prod_mod: int
+
+
+@functools.lru_cache(maxsize=None)
+def crt_constants(N: int) -> CrtConstants:
+    primes = tuple(int(p) for p in get_tables(N).primes)
+    prod = 1
+    for p in primes:
+        prod *= p
+    w_mod, frac = [], []
+    for p in primes:
+        inv = pow(prod // p, -1, p)
+        w_mod.append((prod // p) * inv % (1 << 32))
+        frac.append(inv / p)
+    return CrtConstants(primes, tuple(w_mod), tuple(frac), prod % (1 << 32))
+
+
+def crt_fold(r: torch.Tensor, tab: NttTables) -> torch.Tensor:
+    """Residues [..., NP, N] -> the balanced value mod 2^32 ([..., N]
+    words), by the CRT partial sums of the prime-split kernel
+    (`helm_tpu/ops/mxu_pbs.py` `_crt_fast` :362 and the `crtacc` fold
+    :2388-2413): x = sum_i r_i * W_i - k * P with k = round(sum_i r_i *
+    W_i / P), taken mod 2^32.
+
+    The quotient estimate is exact. The true value x satisfies
+    sum_i r_i W_i = x + k P for an integer k, so S = sum_i r_i W_i / P =
+    k + x / P, and |x| <= params.conv_bound() bounds |x| / P by 0.389 at
+    most over every set of `params.ALL_PARAMS` (GATES_128_K3 with
+    PRIMES_512: 2^54.00 against 2^55.36; 0.007 at ARITH_128_MB2, 0.006 at
+    LUT_128_K2): S lies at least 0.11 from a half-integer. Here S is a float64 sum of four products r_i * frac_i
+    with r_i < 2^17 and frac_i in (0, 1) rounded to 53 bits: its error is
+    below 2^-32, so floor(S + 0.5) is k. (The TPU kernel sums in float32,
+    error below 2^-6.) The result equals `garner_to_u32`'s whenever
+    |x| <= conv_bound."""
+    c = crt_constants(tab.N)
+    total = None
+    s = None
+    for i in range(NUM_PRIMES):
+        ri = r[..., i, :]
+        t = ri * c.w_mod[i]  # < 2^49: the sum of four stays exact in int64
+        f = ri.to(torch.float64) * c.frac[i]
+        total = t if total is None else total + t
+        s = f if s is None else s + f
+    k = torch.floor(s + 0.5).to(torch.int64)
+    return (total - k * c.prod_mod) & M32
 
 
 def _generic_modmul(a, b, p):

@@ -3,7 +3,9 @@
 Counterpart of `helm_tpu/fhe/pbs_jnp.py`. These are the plain versions
 of the port's kernels, and the CPU path of the dispatcher:
 `blind_rotate_multibit` is the plain version of the multi-bit kernel K1
-(`ops/mb_pbs.py`, `csrc/blind_rotate_mb.cu`), `blind_rotate` that of the
+(`ops/mb_pbs.py`, `csrc/blind_rotate_mb.cu`), `blind_rotate_prime_split`
+that of the prime-split kernel K6 (`ops/ps_pbs.py`,
+`csrc/blind_rotate_ps.cu`), `blind_rotate` that of the
 single-bit kernel K2 (`ops/sb_pbs.py`, `csrc/blind_rotate_sb.cu`). All
 arithmetic is exact, so every function returns the same words as its
 jnp twin. Words are int64 values in [0, 2^32) (`fhe/ntt.py`).
@@ -23,6 +25,7 @@ from .modring import NUM_PRIMES, NttTables, _bit_reverse, get_tables, primes_for
 from .ntt import (
     M32,
     _generic_modmul,
+    crt_fold,
     device_tables,
     digits_to_residues,
     garner_to_u32,
@@ -168,8 +171,27 @@ def blind_rotate_multibit(
     dsk: DeviceServerKey, lwe_in: torch.Tensor, testv: torch.Tensor
 ) -> torch.Tensor:
     """Multi-bit blind rotation (pbs_jnp.py:194), the plain version of the
-    CUDA kernel: per group, acc += INTT(sum_r NTT(dec(acc))_r (.)
-    sum_v P_v (.) BSK_v) — the additive-identity CMux. [G, n+1] -> [G, k+1, N]."""
+    CUDA kernel K1: per group, acc += INTT(sum_r NTT(dec(acc))_r (.)
+    sum_v P_v (.) BSK_v) — the additive-identity CMux, the residues
+    recombined by Garner. [G, n+1] -> [G, k+1, N]."""
+    return _blind_rotate_mb(dsk, lwe_in, testv, garner_to_u32)
+
+
+def blind_rotate_prime_split(
+    dsk: DeviceServerKey, lwe_in: torch.Tensor, testv: torch.Tensor
+) -> torch.Tensor:
+    """The prime-split multi-bit blind rotation, the plain version of K6
+    (`ops/ps_pbs.py`, `csrc/blind_rotate_ps.cu`; TPU kernel
+    `helm_tpu/ops/mxu_pbs.py::blind_rotate_fs_ps`): per group and per
+    prime, the forward NTT of the digit residues, the pointwise sum over
+    rows and subsets and the inverse NTT (the prime axis is a batch axis
+    here: no prime sees another's residues), then the CRT partial-sum fold
+    (`ntt.crt_fold`) in place of Garner. The same words as
+    `blind_rotate_multibit`. [G, n+1] -> [G, k+1, N]."""
+    return _blind_rotate_mb(dsk, lwe_in, testv, crt_fold)
+
+
+def _blind_rotate_mb(dsk, lwe_in, testv, fold):
     p = dsk.params
     tab = dsk.tab
     g = p.grouping
@@ -196,7 +218,7 @@ def blind_rotate_multibit(
         t = _generic_modmul(f[:, :, None], e, primes_col)
         prod = reduce_small_sum(t.sum(dim=1), primes_col, rows + 1)  # [G, k+1, NP, N]
         # acc += dec(acc) (.) (E - GGSW(1)): the identity is handled additively
-        acc = (acc + garner_to_u32(ntt_inv(prod, tab), tab)) & M32
+        acc = (acc + fold(ntt_inv(prod, tab), tab)) & M32
     return acc
 
 
@@ -223,16 +245,6 @@ def keyswitch(dsk: DeviceServerKey, big_lwe: torch.Tensor) -> torch.Tensor:
     out = (0 - acc) & M32
     out[:, p.n] = (out[:, p.n] + b) & M32
     return out
-
-
-def bootstrap(dsk: DeviceServerKey, lwe_in: torch.Tensor, testv: torch.Tensor):
-    """Full PBS, plain: blind rotate -> sample extract -> keyswitch."""
-    if dsk.params.grouping > 1:
-        acc = blind_rotate_multibit(dsk, lwe_in, testv)
-    else:
-        acc = blind_rotate(dsk, lwe_in, testv)
-    big = ops.sample_extract(acc, dsk.params.k, dsk.params.N)
-    return keyswitch(dsk, big)
 
 
 # ----------------------------------------------------------------------

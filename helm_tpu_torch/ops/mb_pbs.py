@@ -5,7 +5,9 @@ Pallas kernel `blind_rotate_fs_mb` (:2706) with the hand-written CUDA
 kernel in `csrc/blind_rotate_mb.cu`, `mb_server_key` replaces the BSK
 layout `mxu_server_key_fs` (:1954, cached per key as `_layout_cache`
 :1602 does), and `bootstrap` replaces `bootstrap_mxu` (:2839): grouping-1
-sets go to the single-bit kernel K2 (`ops/sb_pbs.py`), the others to K1.
+sets go to the single-bit kernel K2 (`ops/sb_pbs.py`), the others to the
+multi-bit kernel that `mb_kernel()` selects (HELM_TPU_MB_KERNEL, as
+`helm_tpu/ops/ts_pbs.py:76`): K1, or the prime-split K6 (`ops/ps_pbs.py`).
 
 Dispatch is by the device of the input tensor: on the CPU the plain torch
 version (`fhe/pbs.py`) runs; on a CUDA tensor the kernel is launched, or
@@ -15,6 +17,7 @@ an error is raised — there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import os
 import weakref
 from dataclasses import dataclass
 
@@ -159,19 +162,67 @@ def blind_rotate_mb(
 blind_rotate_mb.launches = 0
 
 
+#: the multi-bit kernel when HELM_TPU_MB_KERNEL does not name one
+#: (ts_pbs.py:73 DEFAULT_MB_KERNEL)
+DEFAULT_MB_KERNEL = "fs"
+MB_KERNELS = ("fs", "fs16", "ts", "hb", "hb2", "ps")
+
+
+def mb_kernel() -> str:
+    """The multi-bit kernel selection (`helm_tpu/ops/ts_pbs.py:76`
+    `mb_kernel`): HELM_TPU_MB_KERNEL when it names a kernel, else "ts"
+    under the legacy HELM_TPU_TS_KERNEL=1, else DEFAULT_MB_KERNEL. Read
+    at every call, as the reference does."""
+    env = os.environ.get("HELM_TPU_MB_KERNEL")
+    if env in MB_KERNELS:
+        return env
+    if os.environ.get("HELM_TPU_TS_KERNEL", "0") == "1":
+        return "ts"
+    return DEFAULT_MB_KERNEL
+
+
+def blind_rotation(params):
+    """The blind-rotation wrapper `bootstrap` runs for `params`, routed as
+    `helm_tpu/ops/mxu_pbs.py:2864-2936` `bootstrap_mxu` routes:
+    grouping 1 -> K2 (`sb_pbs.blind_rotate_sb`) whatever the selection;
+    otherwise by `mb_kernel()`: "ps" -> K6 (`ps_pbs.blind_rotate_ps`);
+    "fs", "fs16", "hb", "hb2" -> K1 (`blind_rotate_mb`: their TPU bodies
+    are K1's pallas_call with another BSK dtype or layout, the same
+    function); "ts" (K4) raises, as it is not ported yet."""
+    if params.grouping == 1:
+        from .sb_pbs import blind_rotate_sb
+
+        return blind_rotate_sb
+    kn = mb_kernel()
+    if kn == "ps":
+        from .ps_pbs import blind_rotate_ps
+
+        return blind_rotate_ps
+    if kn == "ts":
+        raise NotImplementedError(
+            "HELM_TPU_MB_KERNEL=ts selects K4 (helm_tpu/ops/ts_pbs.py:643 "
+            "blind_rotate_ts_mb), which is not ported yet: ROADMAP.md queue 2"
+        )
+    return blind_rotate_mb
+
+
+def kernel_layouts(dsk: pbs.DeviceServerKey) -> None:
+    """Build the key layouts the selected kernels read (K1's and K2's
+    `mb_server_key`; K6's `ps_server_key` too when "ps" is selected), so
+    that an engine pays for them once, up front."""
+    mb_server_key(dsk)
+    if dsk.params.grouping > 1 and mb_kernel() == "ps":
+        from .ps_pbs import ps_server_key
+
+        ps_server_key(dsk)
+
+
 def bootstrap(
     dsk: pbs.DeviceServerKey, lwe_in: torch.Tensor, testv: torch.Tensor
 ) -> torch.Tensor:
-    """Full PBS [G, n+1] -> [G, n+1]: blind rotation (K1 for grouping > 1,
-    K2 for grouping 1 on CUDA; the plain versions on the CPU), sample
+    """Full PBS [G, n+1] -> [G, n+1]: the blind rotation `blind_rotation`
+    picks (its kernel on CUDA, its plain version on the CPU), sample
     extract, int8-limb keyswitch."""
-    if lwe_in.device.type == "cpu":
-        return pbs.bootstrap(dsk, lwe_in, testv)
-    if dsk.params.grouping > 1:
-        acc = blind_rotate_mb(dsk, lwe_in, testv)
-    else:
-        from .sb_pbs import blind_rotate_sb
-
-        acc = blind_rotate_sb(dsk, lwe_in, testv)
+    acc = blind_rotation(dsk.params)(dsk, lwe_in, testv)
     big = ops.sample_extract(acc, dsk.params.k, dsk.params.N)
     return pbs.keyswitch(dsk, big)

@@ -71,7 +71,8 @@ def test_cli_missing_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["-a", "u32"], "arithmetic mode is not ported"),
+    (["-I", "benchmarks/test-cases/2-bit-adder.inputs.csv"], "not ported yet .ROADMAP.md"),
+    (["-a", "u32", "-c", "2"], "Arithmetic does not currently support sequential"),
 ])
 def test_cli_unported_modes_point_to_roadmap(extra, what):
     with pytest.raises(SystemExit, match=what):

@@ -3,7 +3,7 @@
 Two checks. An AST scan of every module of the port and of chip_smoke.py
 finds no import of `jax` or `helm_tpu` (the port's own copies of the
 reference's numpy modules take their place). A fresh interpreter runs the
-CLI in gates and LUT modes on the CPU and finds neither `jax*` nor
+CLI in gates, LUT and arith modes on the CPU and finds neither `jax*` nor
 `helm_tpu` / `helm_tpu.*` in `sys.modules` afterwards (tests/conftest.py
 imports jax into this process, so only a subprocess can show that).
 The copies themselves are held against the originals: tables, plans,
@@ -11,6 +11,7 @@ parsers and CSV I/O give the same values from both.
 """
 
 import ast
+import os
 import subprocess
 import sys
 import textwrap
@@ -84,6 +85,40 @@ def test_cli_in_a_fresh_interpreter_imports_neither(tmp_path, netlist, inputs, g
     exp = {w: int(v) for w, v in csv_io.read_input_wires(
         str(ROOT / "benchmarks/test-cases" / golden), "bool").items()}
     assert got == exp
+
+
+def test_arith_cli_in_a_fresh_interpreter_imports_neither(tmp_path):
+    """Arith mode through the CLI (chi-squared u8, inline -w inputs) in a
+    fresh interpreter: the outputs are the plaintext oracle's and neither
+    JAX nor helm_tpu was imported."""
+    out = tmp_path / "out.csv"
+    netlist = "benchmarks/netlists/chi_squared_arith.v"
+    inputs = {"n0": 2, "n1": 7, "n2": 9}
+    argv = ["-v", netlist, "-a", "u8", "--test-params", "--device", "cpu", "--seed", "7", "-o", str(out)]
+    for w, v in inputs.items():
+        argv += ["-w", w, str(v)]
+    code = textwrap.dedent(
+        f"""
+        import sys
+        from helm_tpu_torch import cli
+        assert cli.main({argv!r}) == 0
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+        assert not leaked, leaked
+        print("ISOLATED_OK")
+        """
+    )
+    # one intra-op thread: ~12 s alone, and no slower when other test
+    # processes hold the cores
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    assert "ISOLATED_OK" in res.stdout
+    nl = verilog.read_verilog_file(str(ROOT / netlist), True)
+    c = Circuit.from_netlist(nl)
+    exp = c.evaluate_arith(c.initialize_wire_map(nl.wire_set, inputs, default=0), 8)
+    assert csv_io.read_input_wires(str(out), "u8") == {w: exp[w] for w in nl.outputs}
 
 
 @pytest.mark.parametrize("N", [64, 128, 512, 1024, 2048])
