@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase, on cuda:0
     python3 chip_smoke.py --only device,build,k1,k6
+    python3 chip_smoke.py --only device,build,k1,k4,k3
 
 Phases, in order (each prints one line, with its seconds):
   device  the card's name and power limit (nvidia-smi), torch / CUDA versions
@@ -24,6 +25,14 @@ Phases, in order (each prints one line, with its seconds):
           versions are equal word for word, tests/test_torch_ps.py); the
           plain prime-split version itself runs on the card at the tiny sets
           and at GATES_128_K3 G=1024, and must equal k1's words there too
+  k4      the transposed blind-rotation kernel (K4) the same way, at every
+          set and width of k1: first its four-step transforms alone (the
+          N2-point stages on the int8 tensor cores) against fhe/ntt.py at
+          each ring size, then the rotation against K1's plain words; its own
+          plain version (blind_rotate_transposed) runs on the card at the
+          tiny sets and GATES_128_K3 G=1024 and must equal them too
+  k3      the gate-major blind-rotation kernel (K3) the same way (its plain
+          version: blind_rotate_ladder)
   k2      the single-bit blind-rotation kernel (K2) against its plain torch
           version the same way, at TEST_PARAMS (N=64), TEST_PARAMS_LUT
           (N=128), a tiny k=3 grouping-1 set, GATES_TPU at G=1 to 1024,
@@ -51,20 +60,34 @@ Phases, in order (each prints one line, with its seconds):
           and c880-like at GATES_128_K3 (truth table, golden CSV + oracle);
           K6 must launch and K1 must not. Then one G=37 AND batch under
           HELM_TPU_MB_KERNEL=hb2, which must launch K1
+  serve   main path of the daemon under HELM_TPU_MB_KERNEL=ts (K4):
+          helm_tpu_torch.serve.main in process on c880-like at GATES_128_K3
+          (8 request CSVs: the golden vector and 7 from a numpy seed, --batch
+          4 --max-batches 2) and chi-squared u32 at ARITH_128_MB2 (the four
+          recorded vectors, --batch 4 --max-batches 1): every output against
+          its golden CSV or the oracle, every input moved to done/; s/vector
+          per batch; K4 must launch and K1 must not
+  sweep   helm_tpu_torch.tools.mb_sweep at GATES_128_K3, G = 8, 64 and 1024,
+          for LAYOUT fs (K1), ps (K6), ts (K4) and gm (K3, whose only path
+          this is): one table of rot/s
   cli     python -m helm_tpu_torch.cli --device cuda (default sets) on the
           2-bit adder, the LUT adder and chi-squared u32 (-a u32,
-          chi_squared_arith_1) must reproduce their golden CSVs
+          chi_squared_arith_1) must reproduce their golden CSVs, and
+          chi-squared u32 with -I, the four recorded vectors in one batch,
+          their four golden CSVs
   profile torch.profiler over one G=1024 bootstrap batch and one c880-like
-          vector at GATES_128_K3 (K1, then K6 under HELM_TPU_MB_KERNEL=ps),
+          vector at GATES_128_K3 (K1, then K6 under HELM_TPU_MB_KERNEL=ps,
+          and the batch under HELM_TPU_MB_KERNEL=ts: K4),
           one c880-like vector at GATES_TPU and one chi-squared u32 vector
           at ARITH_128_MB2: device time by kernel and the device's idle share
 
 The kernels' launch counters are set to 0 just before each main-path phase
-(batch, c880, g1, lut, arith, ps) and read just after it; the kernel JSON
-line reports the sums. A kernel's bound_ms is the larger of its integer
-operations over the card's INT32 rate and its bytes over the memory rate
-(int_ops and min_bytes below; K6 does K1's transforms and products and
-moves K1's bytes, its CRT fold taking Garner's place). Exits non-zero on
+(batch, c880, g1, lut, arith, ps, serve, sweep) and read just after it;
+the kernel JSON line reports the sums. A kernel's bound_ms is the larger
+of its integer operations over the card's INT32 rate and its bytes over
+the memory rate (int_ops and min_bytes below; K6, K4 and K3 compute K1's
+function: the same transforms, products and bytes, whatever their
+transform's form, fold or monomial construction). Exits non-zero on
 any failure, and when no CUDA device is present. Imports nothing of JAX
 and nothing of the JAX package.
 """
@@ -84,11 +107,11 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = (
-    "device", "build", "k1", "k6", "k2", "batch", "c880", "g1", "lut", "arith", "ps", "cli",
-    "profile",
+    "device", "build", "k1", "k6", "k4", "k3", "k2", "batch", "c880", "g1", "lut", "arith", "ps",
+    "serve", "sweep", "cli", "profile",
 )
-MAIN_PATH = ("batch", "c880", "g1", "lut", "arith", "ps")
-KERNELS = ("blind_rotate_mb", "blind_rotate_sb", "blind_rotate_ps")
+MAIN_PATH = ("batch", "c880", "g1", "lut", "arith", "ps", "serve", "sweep")
+KERNELS = ("blind_rotate_mb", "blind_rotate_sb", "blind_rotate_ps", "blind_rotate_ts", "blind_rotate_gm")
 
 #: H100 SXM peaks used for bound_ms: 132 SMs x 64 INT32 lanes x 1.98 GHz
 #: boost (the guide's table has no INT32 row; its 67 TFLOP/s FP32 is the
@@ -242,6 +265,18 @@ class Smoke:
                 "source": "helm_tpu_torch/csrc/blind_rotate_ps.cu",
                 "replaces": "helm_tpu/ops/mxu_pbs.py:2425",
             },
+            "blind_rotate_ts": {
+                "name": "blind_rotate_ts",
+                "route": "cuda",
+                "source": "helm_tpu_torch/csrc/blind_rotate_ts.cu",
+                "replaces": "helm_tpu/ops/ts_pbs.py:643",
+            },
+            "blind_rotate_gm": {
+                "name": "blind_rotate_gm",
+                "route": "cuda",
+                "source": "helm_tpu_torch/csrc/blind_rotate_gm.cu",
+                "replaces": "helm_tpu/ops/mxu_pbs.py:1811",
+            },
         }
         for k in self.kernel.values():
             k.update(launches=0, max_abs_err=None, ms=None, plain_ms=None,
@@ -343,7 +378,6 @@ class Smoke:
         return f"{label} == plain on every shape; " + "; ".join(notes)
 
     def phase_k1(self):
-        from helm_tpu_torch import params as P
         from helm_tpu_torch.fhe import pbs
         from helm_tpu_torch.ops import mb_pbs
 
@@ -357,21 +391,9 @@ class Smoke:
         # slots wide, each with its own test polynomial. ARITH_128_MB2 (6
         # rows x 2048 words: 48 KB per decompose block): chi-squared u32's
         # merged rounds, each slot with its group's test polynomial
-        wide = (
-            dataclasses.replace(P.TEST_PARAMS_K3, name="test_tiny_k3_n1024", N=1024),
-            dataclasses.replace(P.TEST_PARAMS_MB, name="test_tiny_mb2_n2048", N=2048),
-            P.TEST_PARAMS_MB4,
-        )
-        cases = (
-            (P.TEST_PARAMS_K3, 7, (5, 37), False, ()),
-            *((w, 9, (5,), False, ()) for w in wide),
-            (P.GATES_128_K3, 2024, (8, 16, 32, 37, 64, 128, 200, 256, 1024), False, ()),
-            (P.LUT_128_K2, 2025, (2, 256), True, ()),
-            (P.ARITH_128_MB2, 2030, (8, 1024), True, ()),
-        )
         return self._check_kernel(
             "blind_rotate_mb", "K1", pbs.blind_rotate_multibit, mb_pbs.blind_rotate_mb,
-            cases, ("gates_128_k3", 1024),
+            self._k1_cases(), ("gates_128_k3", 1024),
         )
 
     def phase_k6(self):
@@ -392,6 +414,63 @@ class Smoke:
         return self._check_kernel(
             "blind_rotate_ps", "K6", pbs.blind_rotate_prime_split, ps_pbs.blind_rotate_ps,
             cases, ("gates_128_k3", 1024),
+        )
+
+    #: the sets and widths K1 is checked at (phase k1), with the shapes
+    #: where a kernel's own plain version runs on the card too: the tiny
+    #: sets and GATES_128_K3 G=1024
+    def _k1_cases(self):
+        from helm_tpu_torch import params as P
+
+        wide = (
+            dataclasses.replace(P.TEST_PARAMS_K3, name="test_tiny_k3_n1024", N=1024),
+            dataclasses.replace(P.TEST_PARAMS_MB, name="test_tiny_mb2_n2048", N=2048),
+            P.TEST_PARAMS_MB4,
+        )
+        return (
+            (P.TEST_PARAMS_K3, 7, (5, 37), False, (5, 37)),
+            *((w, 9, (5,), False, (5,)) for w in wide),
+            (P.GATES_128_K3, 2024, (8, 16, 32, 37, 64, 128, 200, 256, 1024), False, (1024,)),
+            (P.LUT_128_K2, 2025, (2, 256), True, ()),
+            (P.ARITH_128_MB2, 2030, (8, 1024), True, ()),
+        )
+
+    def phase_k4(self):
+        import numpy as np
+        import torch
+
+        from helm_tpu_torch.fhe import ntt, pbs
+        from helm_tpu_torch.ops import ts_pbs
+
+        # the transforms alone first (their tensor-core products, the
+        # three-limb path of p = 65537 at N=2048), then the rotation at
+        # every set and width of phase k1
+        notes = []
+        for params, seed, *_ in self._k1_cases():
+            _, _, dsk = self.keys_for(params, seed)
+            N = params.N
+            rng = np.random.default_rng(N)
+            res = np.stack([rng.integers(0, p, size=(3, N)) for p in dsk.tab.primes], axis=1)
+            x = torch.from_numpy(res.astype(np.int64)).to(self.device)
+            fwd = ntt.ntt_fwd_four_step(x, N)
+            got = ts_pbs.four_step_kernel(dsk, x)
+            assert torch.equal(got, fwd), f"K4 forward four-step != ntt_fwd_four_step at {params.name}"
+            got = ts_pbs.four_step_kernel(dsk, fwd, inverse=True)
+            assert torch.equal(got, x), f"K4 inverse four-step != ntt_inv_four_step at {params.name}"
+            notes.append(params.name)
+        print(f"[k4] four-step transforms on the tensor cores == ntt.py at {', '.join(notes)}", flush=True)
+        return self._check_kernel(
+            "blind_rotate_ts", "K4", pbs.blind_rotate_transposed, ts_pbs.blind_rotate_ts,
+            self._k1_cases(), ("gates_128_k3", 1024),
+        )
+
+    def phase_k3(self):
+        from helm_tpu_torch.fhe import pbs
+        from helm_tpu_torch.ops import gm_pbs
+
+        return self._check_kernel(
+            "blind_rotate_gm", "K3", pbs.blind_rotate_ladder, gm_pbs.blind_rotate_gm,
+            self._k1_cases(), ("gates_128_k3", 1024),
         )
 
     def phase_k2(self):
@@ -612,6 +691,98 @@ class Smoke:
         assert ps_pbs.blind_rotate_ps.launches == k6, "HELM_TPU_MB_KERNEL=hb2 launched K6"
         return "HELM_TPU_MB_KERNEL=ps: " + "; ".join(notes)
 
+    def phase_serve(self):
+        """The daemon in process under HELM_TPU_MB_KERNEL=ts (K4): c880-like
+        at GATES_128_K3 (the golden vector and 7 from a numpy seed, two
+        batches of 4) and chi-squared u32 at ARITH_128_MB2 (the four
+        recorded vectors, one batch of 4); every output against its golden
+        CSV or the oracle, every input moved to done/."""
+        import io
+        import re
+        import shutil
+
+        from helm_tpu_torch import serve
+        from helm_tpu_torch.io import csv_io
+        from helm_tpu_torch.ops import mb_pbs
+
+        def run(argv, watch):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = serve.main(argv)
+            out = buf.getvalue()
+            print(out, end="", flush=True)
+            assert rc == 0, f"serve exited {rc}"
+            assert not [f for f in os.listdir(watch) if f.endswith(".csv")], "inputs left in the watch dir"
+            assert not os.path.exists(os.path.join(watch, "failed")), "serve quarantined an input"
+            return [float(x) for x in re.findall(r"\(([0-9.]+)s/vector\)", out)]
+
+        notes = []
+        with _mb_kernel("ts"), tempfile.TemporaryDirectory() as td:
+            import numpy as np
+
+            nl = _netlist("c880-like.v")
+            watch, outd = os.path.join(td, "c880"), os.path.join(td, "c880_out")
+            os.makedirs(watch)
+            golden_in = os.path.join(ROOT, "benchmarks/test-cases/c880-like.inputs.csv")
+            shutil.copy(golden_in, os.path.join(watch, "v0.csv"))
+            rng = np.random.default_rng(8)
+            vecs = {"v0": _golden("c880-like.inputs.csv")}
+            for i in range(1, 8):
+                vecs[f"v{i}"] = {w: bool(rng.integers(0, 2)) for w in sorted(nl.inputs)}
+                with open(os.path.join(watch, f"v{i}.csv"), "w") as f:
+                    f.write("wire,value\n" + "".join(f"{w},{int(v)}\n" for w, v in vecs[f"v{i}"].items()))
+            per = run(["-v", os.path.join(ROOT, "benchmarks/netlists/c880-like.v"), "--watch", watch,
+                       "--outdir", outd, "--params", "gates_128_k3", "--seed", "2024", "--batch", "4",
+                       "--max-batches", "2", "--device", self.device], watch)
+            for name, vec in vecs.items():
+                got = csv_io.read_input_wires(os.path.join(outd, f"{name}.out.csv"), "bool")
+                assert got == _oracle(nl, vec), f"serve c880-like {name} differs from the oracle"
+            got = csv_io.read_input_wires(os.path.join(outd, "v0.out.csv"), "bool")
+            assert got == _golden("c880-like.outputs.csv"), "serve c880-like differs from the golden CSV"
+            notes.append(f"gates_128_k3 c880-like, 8 requests in 2 batches of 4, golden CSV + oracle ok: "
+                         f"s/vector per batch {per}")
+
+            anl = _netlist("chi_squared_arith.v", arith=True)
+            watch, outd = os.path.join(td, "chi"), os.path.join(td, "chi_out")
+            os.makedirs(watch)
+            for i in range(1, 5):
+                shutil.copy(os.path.join(ROOT, f"benchmarks/test-cases/chi_squared_arith_{i}.inputs.csv"),
+                            os.path.join(watch, f"chi{i}.csv"))
+            per = run(["-v", os.path.join(ROOT, "benchmarks/netlists/chi_squared_arith.v"), "-a", "u32",
+                       "--watch", watch, "--outdir", outd, "--params", "arith_128_mb2", "--seed", "2030",
+                       "--batch", "4", "--max-batches", "1", "--device", self.device], watch)
+            for i in range(1, 5):
+                got = csv_io.read_input_wires(os.path.join(outd, f"chi{i}.out.csv"), "u32")
+                inputs = _golden(f"chi_squared_arith_{i}.inputs.csv", "u32")
+                assert got == _golden(f"chi_squared_arith_{i}.outputs.csv", "u32"), f"serve chi-squared {i} != golden"
+                assert got == _oracle_arith(anl, inputs, 32), f"serve chi-squared {i} differs from the oracle"
+            notes.append(f"arith_128_mb2 chi-squared u32, the 4 recorded vectors in 1 batch, golden CSVs + "
+                         f"oracle ok: s/vector per batch {per}")
+        from helm_tpu_torch.ops import ts_pbs
+
+        assert ts_pbs.blind_rotate_ts.launches > 0, "serve under HELM_TPU_MB_KERNEL=ts never launched K4"
+        assert mb_pbs.blind_rotate_mb.launches == 0, "serve under HELM_TPU_MB_KERNEL=ts launched K1"
+        return "python -m helm_tpu_torch.serve under HELM_TPU_MB_KERNEL=ts: " + "; ".join(notes)
+
+    def phase_sweep(self):
+        """helm_tpu_torch.tools.mb_sweep at GATES_128_K3 for the four
+        multi-bit kernels (LAYOUT fs: K1, ps: K6, ts: K4, gm: K3)."""
+        from helm_tpu_torch import params as P
+        from helm_tpu_torch.tools import mb_sweep
+
+        ck, _, dsk = self.keys_for(P.GATES_128_K3, 2024)
+        widths = (8, 64, 1024)
+        table = {}
+        for layout in ("fs", "ps", "ts", "gm"):
+            table[layout] = [mb_sweep.sweep(dsk, ck, layout, G, [32])[0] for G in widths]
+        lines = ["| LAYOUT (kernel) | " + " | ".join(f"G={G} rot/s" for G in widths) + " |",
+                 "|---|" + "---|" * len(widths)]
+        names = {"fs": "fs (K1)", "ps": "ps (K6)", "ts": "ts (K4)", "gm": "gm (K3)"}
+        for layout, rates in table.items():
+            lines.append(f"| {names[layout]} | " + " | ".join(f"{r:.1f}" for r in rates) + " |")
+        print("\n".join(lines), flush=True)
+        return "gates_128_k3 mb_sweep table printed above (rot/s, 6 timed rotations each)"
+
     def phase_profile(self):
         import torch
         from torch.autograd import DeviceType
@@ -637,6 +808,13 @@ class Smoke:
 
             return run
 
+        def under_ts(fn):
+            def run():
+                with _mb_kernel("ts"):
+                    return fn()
+
+            return run
+
         def chi_squared_vector(p, seed):
             from helm_tpu_torch import ArithEngine
 
@@ -655,6 +833,7 @@ class Smoke:
             "gates_128_k3 batch1024": lambda: mb_pbs.bootstrap(dsk, x, tv),
             "gates_128_k3 c880_vector": c880_vector(p, 2024),
             "gates_128_k3 c880_vector under ps": under_ps(c880_vector(p, 2024)),
+            "gates_128_k3 batch1024 under ts": under_ts(lambda: mb_pbs.bootstrap(dsk, x, tv)),
             "gates_tpu_v32 c880_vector": c880_vector(P.GATES_TPU, 2026),
             "arith_128_mb2 chi_squared_u32_vector": chi_squared_vector(P.ARITH_128_MB2, 2030),
         }
@@ -713,6 +892,23 @@ class Smoke:
             exp = _golden(golden, kind)
             assert got == exp, f"CLI outputs on {net} {got} != golden {exp}"
             notes.append(f"{net}{'' if kind == 'bool' else ' -a ' + kind} --device cuda reproduces {golden}")
+        with tempfile.TemporaryDirectory() as td:
+            out = os.path.join(td, "out.csv")
+            files = [f"benchmarks/test-cases/chi_squared_arith_{i}.inputs.csv" for i in range(1, 5)]
+            res = subprocess.run(
+                [sys.executable, "-m", "helm_tpu_torch.cli", "-v", "benchmarks/netlists/chi_squared_arith.v",
+                 "-a", "u32", "-I", *files, "-o", out, "--device", self.device],
+                cwd=ROOT, capture_output=True, text=True, timeout=600,
+            )
+            if res.returncode != 0:
+                raise AssertionError(f"CLI -I failed ({res.returncode}):\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+            for i in range(4):
+                assert f" [vector {i}: {files[i]}]" in res.stdout, f"CLI -I printed no vector {i}"
+                got = csv_io.read_input_wires(f"{out}.{i}", "u32")
+                exp = _golden(f"chi_squared_arith_{i + 1}.outputs.csv", "u32")
+                assert got == exp, f"CLI -I vector {i} {got} != golden {exp}"
+        notes.append("chi_squared_arith -a u32 --device cuda -I (the 4 recorded vectors, one batch) "
+                     "reproduces the 4 golden CSVs")
         return "; ".join(notes)
 
 
@@ -733,17 +929,21 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
     smoke = Smoke("cuda")
-    from helm_tpu_torch.ops import mb_pbs, ps_pbs, sb_pbs
+    from helm_tpu_torch.ops import gm_pbs, mb_pbs, ps_pbs, sb_pbs, ts_pbs
 
     wrappers = {
         "blind_rotate_mb": mb_pbs.blind_rotate_mb,
         "blind_rotate_sb": sb_pbs.blind_rotate_sb,
         "blind_rotate_ps": ps_pbs.blind_rotate_ps,
+        "blind_rotate_ts": ts_pbs.blind_rotate_ts,
+        "blind_rotate_gm": gm_pbs.blind_rotate_gm,
     }
     #: the kernels each main-path phase must launch
     expect = {"batch": ("blind_rotate_mb",), "c880": ("blind_rotate_mb",),
               "g1": ("blind_rotate_sb",), "lut": ("blind_rotate_mb", "blind_rotate_sb"),
-              "arith": ("blind_rotate_mb",), "ps": ("blind_rotate_ps", "blind_rotate_mb")}
+              "arith": ("blind_rotate_mb",), "ps": ("blind_rotate_ps", "blind_rotate_mb"),
+              "serve": ("blind_rotate_ts",),
+              "sweep": ("blind_rotate_mb", "blind_rotate_ps", "blind_rotate_ts", "blind_rotate_gm")}
     for name in PHASES:
         if name not in only:
             continue

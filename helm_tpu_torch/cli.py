@@ -8,8 +8,9 @@ arith mode (default set DEFAULT_ARITH, `--test-params`
 TEST_PARAMS_ARITH); otherwise a netlist with `lut` cells runs in LUT mode
 (DEFAULT_LUT, TEST_PARAMS_LUT), any other in gates mode (DEFAULT_GATES,
 TEST_PARAMS). A missing device is an error, never a quiet switch to the
-CPU. `-I/--batch-input-files` is not ported yet and exits with a pointer
-to ROADMAP.md.
+CPU. `-I/--batch-input-files` evaluates several input CSVs in one batched
+pass (every bootstrap launch that many times wider); each vector's outputs
+print under `[vector i: file]` and go to `<-o>.<i>`.
 
     python -m helm_tpu_torch.cli -v benchmarks/netlists/2-bit-adder.v \\
         -i benchmarks/test-cases/2-bit-adder.inputs.csv -o out.csv --device cuda
@@ -17,6 +18,8 @@ to ROADMAP.md.
         -i benchmarks/test-cases/8-bit-adder.inputs.csv --device cuda
     python -m helm_tpu_torch.cli -v benchmarks/netlists/chi_squared_arith.v -a u32 \\
         -i benchmarks/test-cases/chi_squared_arith_1.inputs.csv --device cuda
+    python -m helm_tpu_torch.cli -v benchmarks/netlists/chi_squared_arith.v -a u32 \\
+        -I benchmarks/test-cases/chi_squared_arith_{1,2,3,4}.inputs.csv -o out.csv
 """
 
 from __future__ import annotations
@@ -68,7 +71,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("-i", "--input-wires-file", metavar="FILE")
     ap.add_argument(
         "-I", "--batch-input-files", nargs="+", metavar="FILE",
-        help="several input CSVs evaluated in one batched pass (not ported yet)",
+        help="several input CSVs evaluated in one batched pass; outputs go to <-o>.<i>",
     )
     ap.add_argument("-o", "--output-wires-file", metavar="FILE")
     ap.add_argument(
@@ -100,6 +103,30 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
+def _input_maps(args, ptxt_type: str):
+    """The input map, or with -I the list of one map per CSV
+    (`helm_tpu/cli.py:204-214`)."""
+    if args.batch_input_files:
+        maps = [csv_io.read_input_wires(f, ptxt_type) for f in args.batch_input_files]
+        print(f"[✓] Batched input wires: {len(maps)} vectors.")
+        return maps
+    return get_input_wire_map(args, ptxt_type)
+
+
+def _report(args, outputs) -> None:
+    """Print and write the outputs: one dict, or with -I one per vector
+    under `[vector i: file]`, written to `<-o>.<i>`."""
+    if isinstance(outputs, list):
+        for bi, out in enumerate(outputs):
+            print(f" [vector {bi}: {args.batch_input_files[bi]}]")
+            _print_outputs(out, args.verbose)
+            if args.output_wires_file:
+                csv_io.write_output_wires(f"{args.output_wires_file}.{bi}", out)
+    else:
+        _print_outputs(outputs, args.verbose)
+        csv_io.write_output_wires(args.output_wires_file, outputs)
+
+
 def _print_outputs(outputs: dict, verbose: bool) -> None:
     for i, w in enumerate(sorted(outputs)):
         if i > 10 and not verbose:
@@ -126,11 +153,6 @@ def main(argv=None) -> int:
         raise SystemExit(
             f"--device {args.device}: no CUDA device is available "
             "(pass --device cpu to run the plain torch versions)"
-        )
-    if args.batch_input_files:
-        raise SystemExit(
-            "-I/--batch-input-files is not ported yet (ROADMAP.md queue 1 item 7); "
-            "the engines take a list of input maps"
         )
     if args.arithmetic and args.cycles > 1:
         raise SystemExit(
@@ -176,7 +198,7 @@ def _run_boolean(args, netlist, device) -> int:
 
     mode = "lut" if netlist.has_luts else "gates"
     print(f" -- {'LUTs' if mode == 'lut' else 'Gates'} mode --")
-    input_wire_map = get_input_wire_map(args, "bool")
+    input_wire_map = _input_maps(args, "bool")
     start = time.time()
     if mode == "gates":
         params, keys = _params_and_keys(args, P.TEST_PARAMS, P.DEFAULT_GATES, device)
@@ -190,7 +212,8 @@ def _run_boolean(args, netlist, device) -> int:
 
     start = time.time()
     wires = engine.encrypt_inputs(input_wire_map)
-    valid = engine.init_ready() if engine.has_ready() else None
+    nbatch = len(input_wire_map) if isinstance(input_wire_map, list) else None
+    valid = engine.init_ready(batch=nbatch) if engine.has_ready() else None
     print(f"Encryption done in {time.time() - start} seconds.")
 
     ready_flag = False
@@ -209,8 +232,7 @@ def _run_boolean(args, netlist, device) -> int:
         outputs = engine.decrypt_outputs(valid, from_valid=True)
     else:
         outputs = engine.decrypt_outputs(wires)
-    _print_outputs(outputs, args.verbose)
-    csv_io.write_output_wires(args.output_wires_file, outputs)
+    _report(args, outputs)
     print(f"Decryption done in {time.time() - start} seconds.")
     return 0
 
@@ -220,7 +242,7 @@ def _run_arith(args, netlist, device) -> int:
     from .engines.arith import ArithEngine
 
     print(f" -- Arithmetic mode with {args.arithmetic} --")
-    input_wire_map = get_input_wire_map(args, args.arithmetic)
+    input_wire_map = _input_maps(args, args.arithmetic)
     start = time.time()
     params, keys = _params_and_keys(args, P.TEST_PARAMS_ARITH, P.DEFAULT_ARITH, device)
     engine = ArithEngine(
@@ -241,8 +263,7 @@ def _run_arith(args, netlist, device) -> int:
     start = time.time()
     print("Encrypted Evaluation:")
     outputs = engine.decrypt_outputs(wires)
-    _print_outputs(outputs, args.verbose)
-    csv_io.write_output_wires(args.output_wires_file, outputs)
+    _report(args, outputs)
     print(f"Decryption done in {time.time() - start} seconds.")
     return 0
 

@@ -34,7 +34,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .modring import NUM_PRIMES, SHOUP_SHIFT, NttTables, get_tables
+from .modring import (
+    NUM_PRIMES,
+    SHOUP_SHIFT,
+    NttTables,
+    _bit_reverse,
+    get_tables,
+    primes_for,
+    root_of_unity,
+    shoup,
+)
 
 M32 = 0xFFFFFFFF
 
@@ -254,6 +263,202 @@ def crt_fold(r: torch.Tensor, tab: NttTables) -> torch.Tensor:
         s = f if s is None else s + f
     k = torch.floor(s + 0.5).to(torch.int64)
     return (total - k * c.prod_mod) & M32
+
+
+# ----------------------------------------------------------------------
+# The four-step transform (helm_tpu/ops/mxu_ntt.py): N = N1 * N2 with
+# N1 = 8. Forward: x [N1 (jA), N2 (jB)] -> three negacyclic 8-point
+# Cooley-Tukey stages over jA -> twist -> out = U @ W2, W2[jB, fB] =
+# w^(8 jB fB). Stored index fA_s * N2 + fB holds frequency bitrev3(fA_s) +
+# 8 fB of the evaluation set psi^(2f+1): the same set as `ntt_fwd`'s, so
+# the two orders differ by the fixed permutation `perm_from_std`. The
+# N2-point stage is an exact product of signed 8-bit limbs (the Hopper
+# kernel K4 runs it on the int8 tensor cores), never a float product of
+# whole residues.
+# ----------------------------------------------------------------------
+
+N1, LOG_N1 = 8, 3
+#: the most 8-bit signed limbs a balanced residue needs (p = 65537)
+MAX_LIMBS = 3
+
+
+def limb_count(p: int) -> int:
+    """Signed 8-bit limbs that hold every balanced residue of p, i.e.
+    [-(p//2), p//2]. Two limbs hold [-32896, 32639]: every prime below
+    65279. p = 65537 balances to +-32768 and takes three: two 8-bit limbs
+    have 65536 values, one fewer than its residues, so no two-limb split
+    holds them all."""
+    return 2 if p // 2 <= 32639 else MAX_LIMBS
+
+
+def split_limbs(b, nl: int) -> list:
+    """Balanced integers -> nl signed 8-bit limbs l_i in [-128, 127] with
+    b = sum_i l_i 256^i (exact whenever b is inside the nl-limb range)."""
+    out = []
+    for _ in range(nl):
+        lo = ((b + 128) & 255) - 128
+        out.append(lo)
+        b = (b - lo) >> 8
+    return out
+
+
+def balanced(x, p):
+    """Residues in [0, p) -> balanced representatives in [-(p//2), p//2]."""
+    return torch.where(x > p // 2, x - p, x)
+
+
+def _br3(x: int) -> int:
+    return _bit_reverse(x, LOG_N1)
+
+
+@functools.lru_cache(maxsize=None)
+def mxu_tables(N: int) -> dict:
+    """Host tables of the four-step transform at size N (numpy), the
+    values of `helm_tpu/ops/mxu_ntt.py` `mxu_tables` (:47):
+    perm_from_std [N]; stage_tw / istage_tw (+ _sh) [NP, 3, N1], the
+    8-point stages' per-row twiddles; tw / twi (+ _sh) [NP, N1, N2], the
+    twists (twi folds in 1/N1); w2 / w2i [NP, N2, N2], the N2-point
+    matrices mod p (w2i folds in 1/N2), and w2_limbs / w2i_limbs
+    [NP, MAX_LIMBS, N2, N2] int8, their balanced 8-bit limbs (the limbs
+    past limb_count(p) are zero); limbs [NP]."""
+    assert N % N1 == 0
+    N2 = N // N1
+    primes = primes_for(N)
+    logN = N.bit_length() - 1
+    t = {"N2": N2, "primes": primes}
+    perm = np.zeros(N, dtype=np.int64)
+    for fa_s in range(N1):
+        for fb in range(N2):
+            perm[fa_s * N2 + fb] = _bit_reverse(_br3(fa_s) + N1 * fb, logN)
+    t["perm_from_std"] = perm
+    u32 = lambda *s: np.zeros(s, np.uint32)  # noqa: E731
+    names = ("stage_tw", "istage_tw", "tw", "twi")
+    shapes = ((NUM_PRIMES, LOG_N1, N1),) * 2 + ((NUM_PRIMES, N1, N2),) * 2
+    for name, shape in zip(names, shapes):
+        t[name], t[name + "_sh"] = u32(*shape), u32(*shape)
+    t["w2"] = np.zeros((NUM_PRIMES, N2, N2), np.int64)
+    t["w2i"] = np.zeros_like(t["w2"])
+    t["w2_limbs"] = np.zeros((NUM_PRIMES, MAX_LIMBS, N2, N2), np.int8)
+    t["w2i_limbs"] = np.zeros_like(t["w2_limbs"])
+    t["limbs"] = np.array([limb_count(p) for p in primes], np.int64)
+
+    def put(name, idx, v, p):
+        t[name][idx] = v
+        t[name + "_sh"][idx] = shoup(v, p)
+
+    jb = np.arange(N2)
+    for pi, p in enumerate(primes):
+        psi = root_of_unity(p, 2 * N)
+        w = psi * psi % p
+        psii, wi = pow(psi, -1, p), pow(w, -1, p)
+        inv_n1 = pow(N1, -1, p)
+        for fa_s in range(N1):
+            fa = _br3(fa_s)
+            for j in range(N2):
+                put("tw", (pi, fa_s, j), pow(psi, j, p) * pow(w, j * fa % N, p) % p, p)
+                put("twi", (pi, fa_s, j), pow(psii, j, p) * pow(wi, j * fa % N, p) * inv_n1 % p, p)
+        w2n = pow(w, N1, p)
+        w2ni, inv_n2 = pow(w2n, -1, p), pow(N2, -1, p)
+        pw_f = np.array([pow(w2n, e, p) for e in range(N2)], np.int64)
+        pw_i = np.array([pow(w2ni, e, p) * inv_n2 % p for e in range(N2)], np.int64)
+        e = np.outer(jb, jb) % N2
+        t["w2"][pi], t["w2i"][pi] = pw_f[e], pw_i[e]
+        for name in ("w2", "w2i"):
+            b = torch.from_numpy(t[name][pi])
+            for li, limb in enumerate(split_limbs(balanced(b, p), limb_count(p))):
+                t[name + "_limbs"][pi, li] = limb.numpy().astype(np.int8)
+        # the 8-point stages are the merged-psi negacyclic transform at size
+        # N1 with root psi8 = psi^N2: row r of stage s takes T8[m + block]
+        psi8 = pow(psi, N // N1, p)
+        psi8i = pow(psi8, -1, p)
+        for s in range(LOG_N1):
+            fwd_t, inv_t = N1 >> (s + 1), 1 << s
+            for r in range(N1):
+                put("stage_tw", (pi, s, r), pow(psi8, _br3((1 << s) + r // (2 * fwd_t)), p), p)
+                put("istage_tw", (pi, s, r), pow(psi8i, _br3((N1 >> (s + 1)) + r // (2 * inv_t)), p), p)
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def _four_step_device(N: int, device: str) -> dict:
+    t = mxu_tables(N)
+    d = {k: torch.from_numpy(np.asarray(t[k]).astype(np.int64)).to(device)
+         for k in ("stage_tw", "stage_tw_sh", "istage_tw", "istage_tw_sh", "tw", "tw_sh",
+                   "twi", "twi_sh")}
+    for name in ("w2_limbs", "w2i_limbs"):  # operands of the float64 limb products
+        d[name] = torch.from_numpy(t[name].astype(np.float64)).to(device)
+    d["primes"] = torch.tensor(t["primes"], dtype=torch.int64, device=device).reshape(NUM_PRIMES, 1, 1)
+    d["pow256"] = [[pow(256, s, p) for s in range(2 * MAX_LIMBS - 1)] for p in t["primes"]]
+    return d
+
+
+def _limb_product(v: torch.Tensor, w_limbs: torch.Tensor, N: int) -> torch.Tensor:
+    """(v @ W) mod p per prime: v [..., NP, N1, N2] residues, W given by its
+    limbs [NP, MAX_LIMBS, N2, N2]. Both operands are split into signed
+    8-bit limbs, and each limb pair is one matrix product of those small
+    integers: |limb x limb| <= 2^14, so every sum of N2 <= 256 terms is an
+    integer below 2^22 in magnitude. The products run in float64, whose
+    53-bit mantissa holds every such sum exactly, on the CPU and on the
+    card alike (cuBLASLt refuses some int8 shapes of torch._int_mm); the
+    limb shifts are recombined mod p in int64."""
+    t = mxu_tables(N)
+    d = _four_step_device(N, str(v.device))
+    lead, N2 = v.shape[:-3], v.shape[-1]
+    outs = []
+    for pi, p in enumerate(t["primes"]):
+        nl = limb_count(p)
+        a = balanced(v[..., pi, :, :].reshape(-1, N2), p)
+        a_limbs = [x.to(torch.float64) for x in split_limbs(a, nl)]
+        shifts = [None] * (2 * nl - 1)
+        for la, al in enumerate(a_limbs):
+            for lw in range(nl):
+                m = (al @ w_limbs[pi, lw]).to(torch.int64)
+                s = la + lw
+                shifts[s] = m if shifts[s] is None else shifts[s] + m
+        acc = sum(shifts[s] * d["pow256"][pi][s] for s in range(len(shifts)))
+        outs.append(torch.remainder(acc, p).reshape(lead + (N1, N2)))
+    return torch.stack(outs, dim=-3)
+
+
+def ntt_fwd_four_step(x: torch.Tensor, N: int) -> torch.Tensor:
+    """Forward four-step NTT of residues [..., NP, N], out in the stored
+    order (`mxu_ntt.fwd_ref` for every prime at once; equal to
+    ntt_fwd(x)[..., perm_from_std])."""
+    d = _four_step_device(N, str(x.device))
+    p = d["primes"]
+    lead = x.shape[:-2]
+    N2 = N // N1
+    for s in range(LOG_N1):
+        t = N1 >> (s + 1)
+        v = x.reshape(lead + (NUM_PRIMES, N1 // (2 * t), 2, t, N2))
+        # the stage's twiddle sits on the pair's lower row
+        tw = d["stage_tw"][:, s].reshape(NUM_PRIMES, N1 // (2 * t), 2, t, 1)[:, :, 0]
+        tw_sh = d["stage_tw_sh"][:, s].reshape(NUM_PRIMES, N1 // (2 * t), 2, t, 1)[:, :, 0]
+        pc = p.reshape(NUM_PRIMES, 1, 1, 1)
+        u, w = v[..., 0, :, :], mul_shoup(v[..., 1, :, :], tw, tw_sh, pc)
+        x = torch.stack([add_mod(u, w, pc), sub_mod(u, w, pc)], dim=-3)
+    v = mul_shoup(x.reshape(lead + (NUM_PRIMES, N1, N2)), d["tw"], d["tw_sh"], p)
+    return _limb_product(v, d["w2_limbs"], N).reshape(lead + (NUM_PRIMES, N))
+
+
+def ntt_inv_four_step(y: torch.Tensor, N: int) -> torch.Tensor:
+    """Inverse of `ntt_fwd_four_step`: stored order in, natural order out,
+    scaled by N^-1 (`mxu_ntt.inv_ref`; equal to ntt_inv(y_std))."""
+    d = _four_step_device(N, str(y.device))
+    p = d["primes"]
+    lead = y.shape[:-2]
+    N2 = N // N1
+    v = _limb_product(y.reshape(lead + (NUM_PRIMES, N1, N2)), d["w2i_limbs"], N)
+    x = mul_shoup(v, d["twi"], d["twi_sh"], p)
+    for s in range(LOG_N1):
+        t = 1 << s
+        v = x.reshape(lead + (NUM_PRIMES, N1 // (2 * t), 2, t, N2))
+        tw = d["istage_tw"][:, s].reshape(NUM_PRIMES, N1 // (2 * t), 2, t, 1)[:, :, 0]
+        tw_sh = d["istage_tw_sh"][:, s].reshape(NUM_PRIMES, N1 // (2 * t), 2, t, 1)[:, :, 0]
+        pc = p.reshape(NUM_PRIMES, 1, 1, 1)
+        u, w = v[..., 0, :, :], v[..., 1, :, :]
+        x = torch.stack([add_mod(u, w, pc), mul_shoup(sub_mod(u, w, pc), tw, tw_sh, pc)], dim=-3)
+    return x.reshape(lead + (NUM_PRIMES, N))
 
 
 def _generic_modmul(a, b, p):

@@ -5,7 +5,10 @@ of the port's kernels, and the CPU path of the dispatcher:
 `blind_rotate_multibit` is the plain version of the multi-bit kernel K1
 (`ops/mb_pbs.py`, `csrc/blind_rotate_mb.cu`), `blind_rotate_prime_split`
 that of the prime-split kernel K6 (`ops/ps_pbs.py`,
-`csrc/blind_rotate_ps.cu`), `blind_rotate` that of the
+`csrc/blind_rotate_ps.cu`), `blind_rotate_transposed` that of the
+transposed kernel K4 (`ops/ts_pbs.py`, `csrc/blind_rotate_ts.cu`),
+`blind_rotate_ladder` that of the gate-major kernel K3 (`ops/gm_pbs.py`,
+`csrc/blind_rotate_gm.cu`), `blind_rotate` that of the
 single-bit kernel K2 (`ops/sb_pbs.py`, `csrc/blind_rotate_sb.cu`). All
 arithmetic is exact, so every function returns the same words as its
 jnp twin. Words are int64 values in [0, 2^32) (`fhe/ntt.py`).
@@ -21,17 +24,29 @@ import torch
 
 from ..params import TfheParams
 from . import ops
-from .modring import NUM_PRIMES, NttTables, _bit_reverse, get_tables, primes_for, root_of_unity
+from .modring import (
+    NUM_PRIMES,
+    SHOUP_SHIFT,
+    NttTables,
+    _bit_reverse,
+    get_tables,
+    primes_for,
+    root_of_unity,
+)
 from .ntt import (
     M32,
     _generic_modmul,
+    add_mod,
     crt_fold,
     device_tables,
     digits_to_residues,
     garner_to_u32,
     mul_shoup,
+    mxu_tables,
     ntt_fwd,
+    ntt_fwd_four_step,
     ntt_inv,
+    ntt_inv_four_step,
     reduce_small_sum,
     sub_mod,
 )
@@ -191,7 +206,10 @@ def blind_rotate_prime_split(
     return _blind_rotate_mb(dsk, lwe_in, testv, crt_fold)
 
 
-def _blind_rotate_mb(dsk, lwe_in, testv, fold):
+def _blind_rotate_mb(dsk, lwe_in, testv, fold, fwd=None, inv=None, order=None):
+    """The multi-bit rotation with the residues folded by `fold`, and the
+    transforms `fwd` / `inv` (default the standard `ntt_fwd` / `ntt_inv`)
+    whose frequency order `order` maps a standard-order array to."""
     p = dsk.params
     tab = dsk.tab
     g = p.grouping
@@ -199,14 +217,17 @@ def _blind_rotate_mb(dsk, lwe_in, testv, fold):
     groups = n // g
     G = lwe_in.shape[0]
     rows = p.gadget_rows
+    fwd = fwd or (lambda x: ntt_fwd(x, tab))
+    inv = inv or (lambda x: ntt_inv(x, tab))
+    order = order or (lambda x: x)
     primes_col = device_tables(N, str(lwe_in.device))["primes_col"]
     abar = ops.mod_switch(lwe_in[:, :n], N)
     acc = initial_acc(p, lwe_in, testv)
     a_groups = abar.reshape(G, groups, g)
     for j in range(groups):
-        bsk_j = dsk.bsk_ntt[j].to(torch.int64)
-        bsk_sh_j = dsk.bsk_ntt_sh[j].to(torch.int64)
-        pv = subset_polys(p, a_groups[:, j])
+        bsk_j = order(dsk.bsk_ntt[j]).to(torch.int64)
+        bsk_sh_j = order(dsk.bsk_ntt_sh[j]).to(torch.int64)
+        pv = [None] + [order(x) for x in subset_polys(p, a_groups[:, j])[1:]]
         # E[r, c] = sum_{v>=1} P_v (.) BSK_v[r, c] for every (row, component)
         # at once: [G, rows, k+1, NP, N]; the empty subset is never keyed
         e = None
@@ -214,11 +235,104 @@ def _blind_rotate_mb(dsk, lwe_in, testv, fold):
             t = mul_shoup(pv[v][:, None, None], bsk_j[v - 1], bsk_sh_j[v - 1], primes_col)
             e = t if e is None else e + t
         e = reduce_small_sum(e, primes_col, 1 << g)
-        f = ntt_fwd(digits_to_residues(decompose_glwe(p, acc), primes_col), tab)
+        f = fwd(digits_to_residues(decompose_glwe(p, acc), primes_col))
         t = _generic_modmul(f[:, :, None], e, primes_col)
         prod = reduce_small_sum(t.sum(dim=1), primes_col, rows + 1)  # [G, k+1, NP, N]
         # acc += dec(acc) (.) (E - GGSW(1)): the identity is handled additively
-        acc = (acc + fold(ntt_inv(prod, tab), tab)) & M32
+        acc = (acc + fold(inv(prod), tab)) & M32
+    return acc
+
+
+def blind_rotate_transposed(
+    dsk: DeviceServerKey, lwe_in: torch.Tensor, testv: torch.Tensor
+) -> torch.Tensor:
+    """The transposed multi-bit blind rotation, the plain version of K4
+    (`ops/ts_pbs.py`, `csrc/blind_rotate_ts.cu`; TPU kernel
+    `helm_tpu/ops/ts_pbs.py::blind_rotate_ts_mb`): `blind_rotate_multibit`'s
+    steps with both transforms four-step (`ntt.ntt_fwd_four_step`, whose
+    N2-point stage is a product of 8-bit limbs) and the BSK and the subset
+    polynomials in the four-step frequency order. The same words as
+    `blind_rotate_multibit`. [G, n+1] -> [G, k+1, N]."""
+    p = dsk.params
+    N = p.N
+    perm = torch.from_numpy(mxu_tables(N)["perm_from_std"]).to(lwe_in.device)
+    return _blind_rotate_mb(
+        dsk, lwe_in, testv, garner_to_u32,
+        fwd=lambda x: ntt_fwd_four_step(x, N),
+        inv=lambda x: ntt_inv_four_step(x, N),
+        order=lambda x: x[..., perm],
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def monomial_tables(N: int) -> tuple[np.ndarray, np.ndarray]:
+    """T[b, pi, f] = psi^(2^b * e_f) mod p_pi with e_f = 2*bitrev(f)+1: the
+    NTT-domain image of X^(2^b), from which K3 builds NTT(X^a) by a bit
+    ladder (`helm_tpu/fhe/pbs_jnp.py:164`). Returns (tables, shoup) as
+    uint32 [log2(2N), NP, N]."""
+    primes = primes_for(N)
+    L2N = N.bit_length()
+    bits = N.bit_length() - 1
+    e = np.array([2 * _bit_reverse(f, bits) + 1 for f in range(N)], np.int64)
+    t = np.zeros((L2N, len(primes), N), np.uint32)
+    t_sh = np.zeros_like(t)
+    for pi, p in enumerate(primes):
+        psi = root_of_unity(p, 2 * N)
+        pw = np.array([pow(psi, x, p) for x in range(2 * N)], np.int64)
+        for b in range(L2N):
+            w = pw[((1 << b) * e) % (2 * N)]
+            t[b, pi] = w
+            t_sh[b, pi] = (w << SHOUP_SHIFT) // p
+    return t, t_sh
+
+
+def monomial_ntt(a: torch.Tensor, N: int) -> torch.Tensor:
+    """NTT(X^a) for exponents a [G] in [0, 2N) -> [G, NP, N], by the bit
+    ladder: the Shoup product over the set bits b of a of T[b]."""
+    mono, mono_sh = (torch.from_numpy(t.astype(np.int64)).to(a.device) for t in monomial_tables(N))
+    primes_col = device_tables(N, str(a.device))["primes_col"]
+    m = torch.ones((a.shape[0], NUM_PRIMES, N), dtype=torch.int64, device=a.device)
+    for b in range(N.bit_length()):
+        bit = ((a >> b) & 1).bool()[:, None, None]
+        m = torch.where(bit, mul_shoup(m, mono[b], mono_sh[b], primes_col), m)
+    return m
+
+
+def blind_rotate_ladder(
+    dsk: DeviceServerKey, lwe_in: torch.Tensor, testv: torch.Tensor
+) -> torch.Tensor:
+    """The gate-major multi-bit blind rotation, the plain version of K3
+    (`ops/gm_pbs.py`, `csrc/blind_rotate_gm.cu`; TPU kernel
+    `helm_tpu/ops/mxu_pbs.py::blind_rotate_mxu_mb`): per group, NTT(X^a_i)
+    by the bit ladder (`monomial_ntt`), P_v = prod_{i in v} (NTT(X^a_i) -
+    1), T_v[c] = sum_r F_r (.) BSK_v[r, c] by Shoup products against the BSK
+    and its companion, acc += INTT(sum_v P_v (.) T_v) by Garner. The same
+    words as `blind_rotate_multibit`. [G, n+1] -> [G, k+1, N]."""
+    p = dsk.params
+    tab = dsk.tab
+    g, n, N = p.grouping, p.n, p.N
+    G = lwe_in.shape[0]
+    rows = p.gadget_rows
+    primes_col = device_tables(N, str(lwe_in.device))["primes_col"]
+    abar = ops.mod_switch(lwe_in[:, :n], N)
+    acc = initial_acc(p, lwe_in, testv)
+    a_groups = abar.reshape(G, n // g, g)
+    for j in range(n // g):
+        d = [sub_mod(monomial_ntt(a_groups[:, j, i], N), 1, primes_col) for i in range(g)]
+        f = ntt_fwd(digits_to_residues(decompose_glwe(p, acc), primes_col), tab)  # [G, rows, NP, N]
+        s = None
+        for v in range(1, 1 << g):
+            idxs = [i for i in range(g) if (v >> i) & 1]
+            pv = d[idxs[0]]
+            for i in idxs[1:]:
+                pv = _generic_modmul(pv, d[i], primes_col)
+            bsk = dsk.bsk_ntt[j, v - 1].to(torch.int64)  # [rows, k+1, NP, N]
+            bsk_sh = dsk.bsk_ntt_sh[j, v - 1].to(torch.int64)
+            t = mul_shoup(f[:, :, None], bsk, bsk_sh, primes_col).sum(dim=1)
+            t = reduce_small_sum(t, primes_col, rows + 1)  # [G, k+1, NP, N]
+            term = _generic_modmul(pv[:, None], t, primes_col)
+            s = term if s is None else add_mod(s, term, primes_col)
+        acc = (acc + garner_to_u32(ntt_inv(s, tab), tab)) & M32
     return acc
 
 

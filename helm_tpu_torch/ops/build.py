@@ -86,10 +86,11 @@ def load(name: str) -> ctypes.CDLL:
     return load_all([name])[name]
 
 
-def entry(name: str, argtypes: list):
-    """The C entry point helm_<name> of csrc/<name>.cu (built and loaded on
-    first use), with its argument types declared and an int return."""
-    fn = getattr(load(name), f"helm_{name}")
+def entry(name: str, argtypes: list, symbol: str | None = None):
+    """The C entry point `symbol` (default helm_<name>) of csrc/<name>.cu
+    (built and loaded on first use), with its argument types declared and
+    an int return."""
+    fn = getattr(load(name), symbol or f"helm_{name}")
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -7,7 +7,8 @@ layout `mxu_server_key_fs` (:1954, cached per key as `_layout_cache`
 :1602 does), and `bootstrap` replaces `bootstrap_mxu` (:2839): grouping-1
 sets go to the single-bit kernel K2 (`ops/sb_pbs.py`), the others to the
 multi-bit kernel that `mb_kernel()` selects (HELM_TPU_MB_KERNEL, as
-`helm_tpu/ops/ts_pbs.py:76`): K1, or the prime-split K6 (`ops/ps_pbs.py`).
+`helm_tpu/ops/ts_pbs.py:76`): K1, the prime-split K6 (`ops/ps_pbs.py`) or
+the transposed K4 (`ops/ts_pbs.py`).
 
 Dispatch is by the device of the input tensor: on the CPU the plain torch
 version (`fhe/pbs.py`) runs; on a CUDA tensor the kernel is launched, or
@@ -186,9 +187,10 @@ def blind_rotation(params):
     `helm_tpu/ops/mxu_pbs.py:2864-2936` `bootstrap_mxu` routes:
     grouping 1 -> K2 (`sb_pbs.blind_rotate_sb`) whatever the selection;
     otherwise by `mb_kernel()`: "ps" -> K6 (`ps_pbs.blind_rotate_ps`);
-    "fs", "fs16", "hb", "hb2" -> K1 (`blind_rotate_mb`: their TPU bodies
-    are K1's pallas_call with another BSK dtype or layout, the same
-    function); "ts" (K4) raises, as it is not ported yet."""
+    "ts" (also the legacy HELM_TPU_TS_KERNEL=1) -> K4
+    (`ts_pbs.blind_rotate_ts`); "fs", "fs16", "hb", "hb2" -> K1
+    (`blind_rotate_mb`: their TPU bodies are K1's pallas_call with another
+    BSK dtype or layout, the same function)."""
     if params.grouping == 1:
         from .sb_pbs import blind_rotate_sb
 
@@ -199,22 +201,26 @@ def blind_rotation(params):
 
         return blind_rotate_ps
     if kn == "ts":
-        raise NotImplementedError(
-            "HELM_TPU_MB_KERNEL=ts selects K4 (helm_tpu/ops/ts_pbs.py:643 "
-            "blind_rotate_ts_mb), which is not ported yet: ROADMAP.md queue 2"
-        )
+        from .ts_pbs import blind_rotate_ts
+
+        return blind_rotate_ts
     return blind_rotate_mb
 
 
 def kernel_layouts(dsk: pbs.DeviceServerKey) -> None:
     """Build the key layouts the selected kernels read (K1's and K2's
-    `mb_server_key`; K6's `ps_server_key` too when "ps" is selected), so
-    that an engine pays for them once, up front."""
+    `mb_server_key`; K6's `ps_server_key` too when "ps" is selected, K4's
+    `ts_server_key` when "ts" is), so that an engine pays for them once,
+    up front."""
     mb_server_key(dsk)
     if dsk.params.grouping > 1 and mb_kernel() == "ps":
         from .ps_pbs import ps_server_key
 
         ps_server_key(dsk)
+    if dsk.params.grouping > 1 and mb_kernel() == "ts":
+        from .ts_pbs import ts_server_key
+
+        ts_server_key(dsk)
 
 
 def bootstrap(

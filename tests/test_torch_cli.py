@@ -13,13 +13,13 @@ from pathlib import Path
 import pytest
 import torch
 
+from helm_tpu.circuit.graph import Circuit
+from helm_tpu.circuit.verilog import read_verilog_file
 from helm_tpu.io import csv_io
 from helm_tpu_torch import cli
 
-ADDER = [
-    "-v", "benchmarks/netlists/2-bit-adder.v",
-    "-i", "benchmarks/test-cases/2-bit-adder.inputs.csv",
-]
+GOLDEN_IN = "benchmarks/test-cases/2-bit-adder.inputs.csv"
+ADDER = ["-v", "benchmarks/netlists/2-bit-adder.v", "-i", GOLDEN_IN]
 GOLDEN = "benchmarks/test-cases/2-bit-adder.outputs.csv"
 
 
@@ -70,10 +70,35 @@ def test_cli_missing_cuda_raises(monkeypatch):
         cli.main(ADDER + ["--device", "cuda"])
 
 
+# The ids are kept from before -I was ported, when the first case checked
+# that -I exited with a ROADMAP pointer. Now extra0 is a positive -I run
+# (two vectors, one batched pass) and extra1 arith mode's refusal of -c > 1.
 @pytest.mark.parametrize("extra,what", [
-    (["-I", "benchmarks/test-cases/2-bit-adder.inputs.csv"], "not ported yet .ROADMAP.md"),
+    (["-I"], None),
     (["-a", "u32", "-c", "2"], "Arithmetic does not currently support sequential"),
-])
-def test_cli_unported_modes_point_to_roadmap(extra, what):
-    with pytest.raises(SystemExit, match=what):
-        cli.main(ADDER + extra + ["--device", "cpu"])
+], ids=["extra0-not ported yet .ROADMAP.md", "extra1-Arithmetic does not currently support sequential"])
+def test_cli_unported_modes_point_to_roadmap(tmp_path, capsys, extra, what):
+    """-I evaluates two 2-bit-adder vectors in one batched pass: each
+    vector's outputs print under [vector i: file] and land in <-o>.<i>,
+    equal to the plaintext oracle. Arith mode refuses -c > 1, as the
+    reference does."""
+    if what is not None:
+        with pytest.raises(SystemExit, match=what):
+            cli.main(ADDER + extra + ["--device", "cpu"])
+        return
+    second = tmp_path / "v1.csv"
+    second.write_text("wire,value\na[0],1\na[1],1\nb[0],0\nb[1],1\ncin,1\n")
+    files = [GOLDEN_IN, str(second)]
+    out = tmp_path / "out.csv"
+    argv = ["-v", "benchmarks/netlists/2-bit-adder.v", "-I", *files, "-o", str(out),
+            "--test-params", "--device", "cpu", "--seed", "3"]
+    assert cli.main(argv) == 0
+    printed = capsys.readouterr().out
+    nl = read_verilog_file("benchmarks/netlists/2-bit-adder.v")
+    c = Circuit.from_netlist(nl)
+    for i, f in enumerate(files):
+        assert f" [vector {i}: {f}]" in printed
+        ins = _read(f)
+        exp = c.evaluate(c.initialize_wire_map(nl.wire_set, ins))
+        assert _read(f"{out}.{i}") == {w: bool(exp[w]) for w in nl.outputs}
+    assert _read(f"{out}.0") == _read(GOLDEN)

@@ -121,6 +121,39 @@ def test_arith_cli_in_a_fresh_interpreter_imports_neither(tmp_path):
     assert csv_io.read_input_wires(str(out), "u8") == {w: exp[w] for w in nl.outputs}
 
 
+def test_serve_and_sweep_in_a_fresh_interpreter_import_neither(tmp_path):
+    """The daemon (one-shot, --device cpu) on the golden 2-bit-adder
+    vector, with K4's and K3's wrappers and the multi-bit sweep imported
+    too, in a fresh interpreter: the golden outputs, and neither JAX nor
+    helm_tpu in sys.modules."""
+    watch, outd = tmp_path / "in", tmp_path / "out"
+    watch.mkdir()
+    (watch / "v.csv").write_text((ROOT / "benchmarks/test-cases/2-bit-adder.inputs.csv").read_text())
+    argv = ["-v", "benchmarks/netlists/2-bit-adder.v", "--watch", str(watch), "--outdir", str(outd),
+            "--test-params", "--device", "cpu", "--seed", "7", "--batch", "2", "--max-batches", "1"]
+    code = textwrap.dedent(
+        f"""
+        import sys
+        from helm_tpu_torch import serve
+        from helm_tpu_torch.ops import gm_pbs, ts_pbs
+        from helm_tpu_torch.tools import mb_sweep
+        assert serve.main({argv!r}) == 0
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+        assert not leaked, leaked
+        print("ISOLATED_OK")
+        """
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=ROOT,
+    )
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    assert "ISOLATED_OK" in res.stdout
+    got = csv_io.read_input_wires(str(outd / "v.out.csv"), "bool")
+    exp = csv_io.read_input_wires(str(ROOT / "benchmarks/test-cases/2-bit-adder.outputs.csv"), "bool")
+    assert got == exp
+    assert (watch / "done" / "v.csv").exists()
+
+
 @pytest.mark.parametrize("N", [64, 128, 512, 1024, 2048])
 def test_ntt_tables_equal_the_reference(N):
     mine, ref = modring.get_tables(N), ref_modring.get_tables(N)

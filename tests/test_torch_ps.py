@@ -9,7 +9,8 @@ helm_tpu_torch, against helm_tpu.
   `pbs_jnp.blind_rotate_multibit`, word for word, at TEST_PARAMS_K3 and
   TEST_PARAMS_ARITH_MB (the same keys, carried across).
 - `mb_pbs.mb_kernel` against `helm_tpu.ops.ts_pbs.mb_kernel` for every
-  value of the environment variables, and the routing of `mb_pbs.bootstrap`.
+  value of the environment variables, and the routing of `mb_pbs.bootstrap`
+  (K1, K6, and K4 under "ts" and the legacy HELM_TPU_TS_KERNEL=1).
 - `ps_pbs.ps_server_key` as a permutation of the BSK.
 """
 
@@ -29,6 +30,7 @@ from helm_tpu_torch.fhe.modring import PRIMES, PRIMES_512, PRIMES_1024, get_tabl
 from helm_tpu_torch.fhe.ntt import to_host, words
 from helm_tpu_torch.fhe.server_key import server_key_from_reference
 from helm_tpu_torch.ops import mb_pbs, ps_pbs, sb_pbs
+from helm_tpu_torch.ops import ts_pbs as ts_pbs_port
 
 #: each prime set with a ring size that uses it
 PRIME_SETS = {"PRIMES_512": (PRIMES_512, 512), "PRIMES_1024": (PRIMES_1024, 1024), "PRIMES": (PRIMES, 2048)}
@@ -146,24 +148,38 @@ def test_mb_kernel_matches_the_reference(monkeypatch, env):
     assert mb_pbs.DEFAULT_MB_KERNEL == ts_pbs.DEFAULT_MB_KERNEL
 
 
-@pytest.mark.parametrize("kernel,want", [
+ROUTES = [
     ("fs", "blind_rotate_mb"), ("fs16", "blind_rotate_mb"), ("hb", "blind_rotate_mb"),
-    ("hb2", "blind_rotate_mb"), ("ps", "blind_rotate_ps"), ("ts", None),
+    ("hb2", "blind_rotate_mb"), ("ps", "blind_rotate_ps"), ("ts", "blind_rotate_ts"),
+]
+
+
+# The ids are kept from before K4 was ported, when "ts" raised ("ts-None").
+# That case now checks ts -> K4 (blind_rotate_ts), by name and under the
+# legacy HELM_TPU_TS_KERNEL=1, and its bootstrap words.
+@pytest.mark.parametrize("kernel,want", ROUTES, ids=[
+    "fs-blind_rotate_mb", "fs16-blind_rotate_mb", "hb-blind_rotate_mb", "hb2-blind_rotate_mb",
+    "ps-blind_rotate_ps", "ts-None",
 ])
 def test_bootstrap_routing(keys, monkeypatch, kernel, want):
-    """Each selection's blind rotation; "ts" (K4) raises naming the
-    ROADMAP; grouping 1 takes K2 whatever the selection."""
+    """Each selection's blind rotation: "ts" is K4 (`ts_pbs.blind_rotate_ts`),
+    by name and under the legacy HELM_TPU_TS_KERNEL=1, and its route through
+    `mb_pbs.bootstrap` gives the reference's bootstrap words; grouping 1
+    takes K2 whatever the selection."""
+    monkeypatch.delenv("HELM_TPU_TS_KERNEL", raising=False)
     monkeypatch.setenv("HELM_TPU_MB_KERNEL", kernel)
-    ck, _, tdsk = keys["k3"]
+    ck, jdsk, tdsk = keys["k3"]
     assert mb_pbs.blind_rotation(keys["g1"][2].params) is sb_pbs.blind_rotate_sb
-    if want is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-            mb_pbs.blind_rotation(tdsk.params)
-        x, _ = _ctxts(ck, 3, 9)
-        with pytest.raises(NotImplementedError, match="K4"):
-            mb_pbs.bootstrap(tdsk, words(x), words(pbs.gates_test_poly(ck.params)))
-        return
     assert mb_pbs.blind_rotation(tdsk.params).__name__ == want
+    if kernel == "ts":
+        assert mb_pbs.blind_rotation(tdsk.params) is ts_pbs_port.blind_rotate_ts
+        monkeypatch.delenv("HELM_TPU_MB_KERNEL")
+        monkeypatch.setenv("HELM_TPU_TS_KERNEL", "1")
+        assert mb_pbs.blind_rotation(tdsk.params) is ts_pbs_port.blind_rotate_ts
+        x, _ = _ctxts(ck, 3, 9)
+        tv = pbs.gates_test_poly(ck.params)
+        ref = np.asarray(pbs_jnp.bootstrap(jdsk, jnp.asarray(x), jnp.asarray(tv)))
+        np.testing.assert_array_equal(to_host(mb_pbs.bootstrap(tdsk, words(x), words(tv))), ref)
 
 
 def test_bootstrap_words_under_ps(keys, monkeypatch):
