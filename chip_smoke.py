@@ -9,7 +9,11 @@ Phases, in order (each prints one line, with its seconds):
   device  the card's name and power limit (nvidia-smi), torch / CUDA versions
   build   nvcc-builds the kernels in helm_tpu_torch/csrc, one nvcc per
           source, all started together
-  k1      the multi-bit blind-rotation kernel (K1) against its plain torch
+  k1      the multi-bit blind-rotation kernel (K1: one launch per rotation,
+          a thread-block cluster of 4 blocks, one per CRT prime, per tile of
+          gates, walking every CMux group with the tile's accumulators,
+          gadget rows and products in shared memory; the tile from
+          ops/mb_pbs.py tile_plan, printed per width) against its plain torch
           version on the card, at TEST_PARAMS_K3, at tiny sets with N=1024,
           N=2048 and grouping 4, at GATES_128_K3 at the main path's widths
           (G=8 to 1024, ragged G=37 and 200) and at LUT_128_K2 (k=2, N=1024,
@@ -321,11 +325,12 @@ class Smoke:
         build.load_all(KERNELS)
         return f"helm_tpu_torch/csrc/{{{','.join(KERNELS)}}}.cu -> {build.BUILD_DIR.name}/"
 
-    def _check_kernel(self, name, label, plain, kernel, cases, timed):
+    def _check_kernel(self, name, label, plain, kernel, cases, timed, detail=None):
         """Hold `kernel` against the plain words word for word on every case
         (params, seed, Gs, per-gate testv, Gs where `plain` runs even when
         another kernel's plain version already ran these inputs, and must
-        agree with it); record the timed case's numbers."""
+        agree with it); record the timed case's numbers. `detail(params, G)`
+        adds to each width's line."""
         import numpy as np
         import torch
 
@@ -368,7 +373,7 @@ class Smoke:
                 b_ms, b_by = bound_ms(params, G, tv.shape[0])
                 notes.append(
                     f"{params.name} G={G}: {ms:.6f} ms vs plain {plain_ms:.6f} ms, "
-                    f"bound {b_ms:.6f} ms ({b_by})"
+                    f"bound {b_ms:.6f} ms ({b_by})" + (f", {detail(params, G)}" if detail else "")
                 )
                 print(f"[{label.lower()}] {notes[-1]} — equal (tolerance 0)", flush=True)
                 if (params.name, G) == timed:
@@ -391,9 +396,16 @@ class Smoke:
         # slots wide, each with its own test polynomial. ARITH_128_MB2 (6
         # rows x 2048 words: 48 KB per decompose block): chi-squared u32's
         # merged rounds, each slot with its group's test polynomial
+        def tile(params, G):
+            dsk = self.keys[params.name][2]
+            plan = mb_pbs.plan_for(dsk, G)
+            k1 = mb_pbs.mb_server_key(dsk).bsk_k1
+            return (f"{plan.tiles} tiles of {plan.gt} gates, {plan.smem} B of shared memory a block, "
+                    f"K1's BSK copy {k1.numel() * k1.element_size()} B")
+
         return self._check_kernel(
             "blind_rotate_mb", "K1", pbs.blind_rotate_multibit, mb_pbs.blind_rotate_mb,
-            self._k1_cases(), ("gates_128_k3", 1024),
+            self._k1_cases(), ("gates_128_k3", 1024), detail=tile,
         )
 
     def phase_k6(self):

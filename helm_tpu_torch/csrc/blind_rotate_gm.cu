@@ -15,11 +15,11 @@
 //
 // Design. One launch per group, one block per gate that holds all NP
 // primes: the TPU kernel's gate-major step, whose primes never leave the
-// step (K1 takes three launches per group, K6 a cluster per gate). In
+// step (K1 walks every group in one launch, K6 a cluster per gate). In
 // shared memory, [NP, rows, N] words (64 KB at GATES_128_K3, 144 KB at
 // LUT_128_K2, 192 KB at ARITH_128_MB2), the block
 //   1. decomposes the gate's accumulator into gadget rows, the digits mod
-//      each prime (decompose_rows, shared with K1, K2 and K6);
+//      each prime (decompose_rows, shared with K2, K4 and K6);
 //   2. runs the forward NTTs of the rows x NP polynomials;
 //   3. per (prime, frequency): the monomials by the bit ladder (one Shoup
 //      product per set bit of a_i), the subset polynomials P_v, and

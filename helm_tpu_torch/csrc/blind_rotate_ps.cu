@@ -17,7 +17,7 @@
 // the prime axis: one cluster per gate, one block per (gate, prime). Each
 // block
 //   1. decomposes the gate's accumulator into gadget rows and reduces the
-//      digits mod its prime (decompose_rows, shared with K1 and K2);
+//      digits mod its prime (decompose_rows, shared with K2, K3 and K4);
 //   2. runs the forward NTTs of the rows in shared memory;
 //   3. forms S_c = sum_r F_r (.) sum_v P_v (.) BSK_v[r, c] per frequency,
 //      P_v by K1's direct monomial lookup (NTT(X^a)[f] = psi^(a*e_f mod
@@ -31,7 +31,7 @@
 // distributed shared memory (cluster.map_shared_rank), folds them and adds
 // the result into acc in device memory. A second cluster.sync() keeps
 // every block's shared memory alive until its peers have read it. So a
-// rotation is n/g launches, where K1 makes 3 x n/g.
+// rotation is n/g launches, where K1 makes one.
 //
 // The fold. x = sum_i r_i W_i - k P (mod 2^32) with k = floor(s + 0.5),
 // s = sum_i r_i * (W_i / P) in double precision. That k is exact: for

@@ -15,8 +15,8 @@
 // layout is carried over (K2a: gate-major lanes, 8-wide frequency split,
 // bf16 limb-matmul NTTs; K2b: roll-form radix-2 NTTs).
 //
-// Design: the same three kernels per step as K1 (blind_rotate_mb.cu), on
-// one stream, the accumulator acc [G, k+1, N] in device memory:
+// Design: three kernels per step, on one stream, the accumulator
+// acc [G, k+1, N] in device memory:
 //   1. decompose_fwd (pbs_common.cuh) grid (G, NP): one block per (gate,
 //      prime) reads the gate's accumulator, forms X^{a_i} * acc - acc by
 //      the negacyclic index (coef - a_i) mod 2N (RotDiffWords below),

@@ -17,7 +17,7 @@
 // Design. One launch per group with grid (gate tiles, NP): a block holds
 // GT gates (1, 2 or 4, by width) for one prime, and
 //   1. decomposes each gate's accumulator into gadget rows, digits mod p,
-//      into X [GT*rows, N] in shared memory (decompose_rows, as K1);
+//      into X [GT*rows, N] in shared memory (decompose_rows, as K6);
 //   2. runs the three 8-point Cooley-Tukey stages of every (row, jB)
 //      column in registers, twists, and splits each word's balanced
 //      residue into signed 8-bit limbs, limb planes A_l [M, N2] with

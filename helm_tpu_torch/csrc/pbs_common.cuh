@@ -1,6 +1,7 @@
 // Device code shared by the blind-rotation kernels (sm_90a):
 // blind_rotate_mb.cu (K1, multi-bit), blind_rotate_sb.cu (K2,
-// single-bit) and blind_rotate_ps.cu (K6, prime-split multi-bit). Each .cu
+// single-bit), blind_rotate_gm.cu (K3, gate-major), blind_rotate_ts.cu
+// (K4, transposed) and blind_rotate_ps.cu (K6, prime-split). Each .cu
 // builds into its own library, so everything here sits in an anonymous
 // namespace and is compiled once per kernel file.
 //
@@ -10,14 +11,20 @@
 //   - decompose_rows: signed gadget decomposition of the k+1 GLWE
 //     components of one gate (params.component_gadgets), digit residues
 //     mod one prime, into shared memory. The words it decomposes come
-//     from a source functor: the bare accumulator for K1 and K6,
-//     (X^{a_i} - 1) * acc for K2;
+//     from a source functor: the bare accumulator for K3, K4 and K6,
+//     (X^{a_i} - 1) * acc for K2 (K1 decomposes inline, fused with its
+//     first register pass);
 //   - ntt_fwd_rows / ntt_inv_rows: the forward and inverse NTTs of rows
-//     in shared memory;
-//   - decompose_fwd (K1, K2): decompose_rows + the forward NTT of every
+//     in shared memory (K2, K3, K6);
+//   - decompose_fwd (K2): decompose_rows + the forward NTT of every
 //     gadget row, one (gate, prime) per block;
-//   - inverse_garner (K1, K2): inverse NTT over the NP primes, Garner with
+//   - inverse_garner (K2): inverse NTT over the NP primes, Garner with
 //     the balanced lift, acc += result;
+//   - the register-pass NTTs of K1 (fwd_radix / inv_radix / RowSwizzle,
+//     below inverse_garner): a thread holds 8 words and runs up to 3
+//     radix-2 stages on them in registers; shared memory only between
+//     passes, through a bank swizzle, with the twiddles in pass order;
+//   - K1's asynchronous copies (mbarrier, cp.async.bulk);
 //   - the host-side unpacking and checking of the shape and the constants.
 
 #pragma once
@@ -103,8 +110,8 @@ __device__ __forceinline__ uint32_t garner(uint32_t r0, uint32_t r1, uint32_t r2
   return v3 > K.half_p3 ? x - K.prod_mod_q : x;        // balanced lift
 }
 
-// The source of the words decompose_rows decomposes for K1 and K6: the
-// bare accumulator, acc [G, k+1, N]
+// The source of the words decompose_rows decomposes for K3, K4 and K6:
+// the bare accumulator, acc [G, k+1, N]
 struct AccWords {
   const uint32_t* acc;
   __device__ __forceinline__ uint32_t operator()(const Shape& S, int gate, int c,
@@ -262,6 +269,228 @@ __global__ void inverse_garner(uint32_t* __restrict__ acc,
   }
 }
 
+// ---------------------------------------------------------------------
+// Register-pass NTTs (K1). A pass runs R <= 3 radix-2 stages on the 2^R
+// words of a block a thread holds in registers, so a transform of N =
+// 2^logN words is ceil(logN / 3) passes with a shared-memory exchange
+// between them (3 at N = 512, 4 at N = 1024 and 2048) in place of one per
+// stage. The stages of pass P are R = min(3, logN - 3P) (pass_stages in
+// ops/mb_pbs.py).
+//   forward (merged-psi Cooley-Tukey, natural -> bit-reversed), pass at
+//   stage s0: block (i0, j), words x_k = i0 * (N >> s0) + k * tl + j with
+//   tl = N >> (s0 + R); stage s0 + r pairs the k that differ in bit
+//   R-1-r, twiddle psi[2^(s0+r) + i0 * 2^r + (k >> (R - r))];
+//   inverse (Gentleman-Sande, bit-reversed -> natural, no N^-1), pass at
+//   stride t0 = 2^s: words x_k = i0 * (t0 << R) + k * t0 + j; stage r
+//   pairs the k that differ in bit r, twiddle psi_inv[(N >> (s + r + 1)) +
+//   i0 * 2^(R-r-1) + (k >> (r + 1))].
+// The host stores both twiddle tables in the order these passes read them
+// (twiddles_by_pass: the lanes of a warp, consecutive i0, read consecutive
+// words) as (w, w_sh) pairs.
+
+// The modular add, subtract and Shoup multiply of K1's passes: the same
+// values as add_mod / sub_mod / mul_shoup, the correction as an unsigned
+// min (a wrapped difference is larger than any residue), one instruction
+// fewer each
+__device__ __forceinline__ uint32_t add_mod_min(uint32_t a, uint32_t b, uint32_t p) {
+  const uint32_t r = a + b;
+  return min(r, r - p);
+}
+
+__device__ __forceinline__ uint32_t sub_mod_min(uint32_t a, uint32_t b, uint32_t p) {
+  const uint32_t r = a - b;
+  return min(r, r + p);
+}
+
+__device__ __forceinline__ uint32_t mul_shoup_min(uint32_t a, uint32_t w, uint32_t w_sh,
+                                                  uint32_t p) {
+  const uint32_t q = (a * w_sh) >> 16;
+  const uint32_t r = a * w - q * p;
+  return min(r, r - p);
+}
+
+// x mod p for any u32 x (reduce32's value, the correction as a min)
+__device__ __forceinline__ uint32_t reduce32_min(uint32_t x, uint32_t p, uint32_t mu32) {
+  const uint32_t r = x - __umulhi(x, mu32) * p;
+  return min(r, r - p);
+}
+
+// forward stages of one block of 2^R words; twf: pass-ordered pairs
+template <int R>
+__device__ __forceinline__ void fwd_radix(uint32_t* v, const uint2* twf, int s0, int i0,
+                                          uint32_t p) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int half = 1 << (R - 1 - r);
+#pragma unroll
+    for (int q = 0; q < (1 << r); ++q) {
+      const uint2 w = twf[(1 << (s0 + r)) + (q << s0) + i0];
+#pragma unroll
+      for (int kk = 0; kk < half; ++kk) {
+        const int a = q * 2 * half + kk, b = a + half;
+        const uint32_t u = v[a], t = mul_shoup_min(v[b], w.x, w.y, p);
+        v[a] = add_mod_min(u, t, p);
+        v[b] = sub_mod_min(u, t, p);
+      }
+    }
+  }
+}
+
+// inverse stages of one block of 2^R words at stride 2^s; twi: pass-
+// ordered pairs
+template <int R>
+__device__ __forceinline__ void inv_radix(uint32_t* v, const uint2* twi, int s, int i0,
+                                          int logN, uint32_t p) {
+  const int ni = 1 << (logN - s - R);  // blocks per row: i0's range
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int dist = 1 << r;
+    const int h = 1 << (logN - s - r - 1);
+#pragma unroll
+    for (int q = 0; q < (1 << (R - 1 - r)); ++q) {
+      const uint2 w = twi[h + q * ni + i0];
+#pragma unroll
+      for (int kk = 0; kk < dist; ++kk) {
+        const int a = q * 2 * dist + kk, b = a + dist;
+        const uint32_t u = v[a], t = v[b];
+        v[a] = add_mod_min(u, t, p);
+        v[b] = mul_shoup_min(sub_mod_min(u, t, p), w.x, w.y, p);
+      }
+    }
+  }
+}
+
+// The bank swizzle of rows of N words in shared memory: word x of row
+// `row` lives at (row << logN) + (x ^ hx[x]), where hx is linear over
+// GF(2) and touches only the 5 bank bits (the host's bank_swizzle). Being
+// linear, hx[base + k * stride] = hx[base] ^ hx[k * stride] when the two
+// share no bits, so a pass looks up hx[k * stride] once and each block
+// hx[base] once. (From N = 256 on a warp stays in one row; below, where
+// only the tiny test sets live, rows of a warp may share banks.)
+struct RowSwizzle {
+  const uint8_t* hx;  // [N]
+  int logN;
+  __device__ __forceinline__ int at(int row, int x) const { return (row << logN) + (x ^ hx[x]); }
+};
+
+// One register pass over `nrows` rows of buf (row rr's gate rr & (gt-1)
+// skipped when >= ng): forward at stage s0, or inverse at stride 2^s0
+template <int R, bool INV>
+__device__ __forceinline__ void ntt_pass(uint32_t* buf, int nrows, int gt, int ng, int s0,
+                                         const uint2* tw, const RowSwizzle& sw, uint32_t p) {
+  constexpr int B = 8 >> R;  // blocks of 2^R words per thread
+  const int logN = sw.logN, N8 = 1 << (logN - 3);
+  // stride between a block's words, and its log
+  const int lstr = INV ? s0 : logN - s0 - R;
+  uint32_t hk[1 << R];
+#pragma unroll
+  for (int k = 0; k < (1 << R); ++k) hk[k] = sw.hx[k << lstr];
+  const int ntask = nrows << (logN - 3);
+  for (int tk = threadIdx.x; tk < ntask; tk += blockDim.x) {
+    const int rr = tk >> (logN - 3), tr = tk & (N8 - 1);
+    if ((rr & (gt - 1)) >= ng) continue;
+    uint32_t v[8];
+    int ub[B], hb[B], i0s[B];  // per block: unswizzled base, its h, i0
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const int b = tr + u * N8;
+      const int j = b & ((1 << lstr) - 1), i0 = b >> lstr;
+      const int xb = (INV ? (i0 << (s0 + R)) : (i0 << (logN - s0))) + j;
+      ub[u] = (rr << logN) | xb;
+      hb[u] = sw.hx[xb];
+      i0s[u] = i0;
+#pragma unroll
+      for (int k = 0; k < (1 << R); ++k)
+        v[u * (1 << R) + k] = buf[(ub[u] | (k << lstr)) ^ hb[u] ^ hk[k]];
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      if constexpr (INV) inv_radix<R>(v + u * (1 << R), tw, s0, i0s[u], logN, p);
+      else fwd_radix<R>(v + u * (1 << R), tw, s0, i0s[u], p);
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u)
+#pragma unroll
+      for (int k = 0; k < (1 << R); ++k)
+        buf[(ub[u] | (k << lstr)) ^ hb[u] ^ hk[k]] = v[u * (1 << R) + k];
+  }
+}
+
+// The passes of a transform after `first` passes already done (the
+// forward transform's first pass is fused with the decomposition),
+// barriers between them. Ends with a barrier.
+template <bool INV>
+__device__ __forceinline__ void ntt_passes(uint32_t* buf, int nrows, int gt, int ng, int first,
+                                           const uint2* tw, const RowSwizzle& sw, uint32_t p) {
+  for (int s0 = 3 * first; s0 < sw.logN; s0 += 3) {
+    const int R = min(3, sw.logN - s0);
+    if (R == 3) ntt_pass<3, INV>(buf, nrows, gt, ng, s0, tw, sw, p);
+    else if (R == 2) ntt_pass<2, INV>(buf, nrows, gt, ng, s0, tw, sw, p);
+    else ntt_pass<1, INV>(buf, nrows, gt, ng, s0, tw, sw, p);
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------
+// Asynchronous bulk copies into shared memory, completed on an mbarrier
+// (K1's BSK ring)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// make mbarrier inits visible to the async proxy
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// one thread: expect `bytes` on bar and copy them from global src to dst
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// distributed shared memory by 32-bit addresses: the shared::cluster
+// address of this block's shared::cta address `addr` in block `rank`, and
+// a load from it
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ uint32_t ld_cluster(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
 // Host: the shape of one rotation; false when the kernels cannot take it
 // (N a power of two in [64, 2048], rows <= MAX_ROWS, digits of at most 16
 // bits, bl*lv < 32 as signed_decompose asserts).
@@ -301,7 +530,7 @@ bool load_consts(Consts& K, const uint32_t* consts) {
   return true;
 }
 
-// Host: the largest sum of products a pointwise kernel accumulates is
+// Host: the largest sum of products a kernel accumulates is
 // terms * (p_max - 1)^2; u32 accumulation is exact when that fits 32 bits.
 bool fits_u32(const Consts& K, unsigned long long terms) {
   const unsigned long long pm = K.p[NP - 1] - 1ull;

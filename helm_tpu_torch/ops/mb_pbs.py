@@ -10,9 +10,16 @@ multi-bit kernel that `mb_kernel()` selects (HELM_TPU_MB_KERNEL, as
 `helm_tpu/ops/ts_pbs.py:76`): K1, the prime-split K6 (`ops/ps_pbs.py`) or
 the transposed K4 (`ops/ts_pbs.py`).
 
-Dispatch is by the device of the input tensor: on the CPU the plain torch
-version (`fhe/pbs.py`) runs; on a CUDA tensor the kernel is launched, or
-an error is raised — there is no fallback.
+K1 is one launch per rotation: a cluster of NP blocks (one per CRT prime)
+owns a tile of gates and walks every group with the tile's accumulator in
+shared memory. `tile_plan` picks the tile for a width from the shared-
+memory budget; `mb_server_key` lays the BSK out in the frequency chunks
+the kernel streams, and the twiddles in the order its register passes
+read them (`pass_stages`, `twiddles_by_pass`, `bank_swizzle`).
+
+Dispatch is by the device of the input tensor: on the CPU the plain
+torch version (`fhe/pbs.py`) runs; on a CUDA tensor the kernel is
+launched, or an error is raised — there is no fallback.
 """
 
 from __future__ import annotations
@@ -22,28 +29,230 @@ import os
 import weakref
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..fhe import ops, pbs
-from ..fhe.modring import NUM_PRIMES
+from ..fhe.modring import primes_for
 from ..fhe.ntt import from_i32_bits, to_i32_bits
 from . import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 11 + [ctypes.POINTER(ctypes.c_uint32)] + [_I] * 9 + [_P]
+_ARGTYPES = [_P] * 7 + [ctypes.POINTER(ctypes.c_uint32)] + [_I] * 12 + [_P]
+
+#: K1's launch shape (csrc/blind_rotate_mb.cu): threads per block, BSK
+#: ring stages, the dynamic shared memory a block may take (227 KB), the
+#: largest gate tile, and the bytes of one streamed BSK chunk. The kernel
+#: checks every launch against its own copy of these and of `smem_bytes`
+#: (`cluster_slots` holds the two shared-memory sums equal on the card)
+THREADS = 512
+STAGES = 2
+SMEM_LIMIT = 232448
+MAX_TILE = 8
+CHUNK_BYTES = 24 * 1024
+
+#: bank swizzle of K1's shared rows: word x of a row lives at x ^ h(x), h
+#: linear over GF(2) in the bits 5.. of x (bit b adds SWIZZLE[b - 5] into
+#: the bank bits). One table serves N = 256-2048: every register pass,
+#: forward and inverse, and every run of 32 consecutive words are
+#: conflict-free (tests/test_torch_mb_tiles.py checks it).
+SWIZZLE = (25, 31, 21, 22, 11, 9, 26, 18, 8)
+
+
+#: (grouping, gadget rows) that K1 has a build for (blind_rotate_mb.cu
+#: select_kernel): every multi-bit set of params.py
+K1_BUILDS = frozenset({(2, 4), (2, 6), (2, 8), (2, 9), (4, 4)})
+
+
+def pass_stages(N: int) -> list:
+    """Radix-2 stages per register pass of K1's NTTs: threes, then the
+    remainder (N = 512: 3, 3, 3; 1024: 3, 3, 3, 1; 2048: 3, 3, 3, 2). The
+    forward transform runs them from the widest stride down, the inverse
+    from stride 1 up."""
+    logn = N.bit_length() - 1
+    return [min(3, logn - s) for s in range(0, logn, 3)]
+
+
+def twiddles_by_pass(w, N: int, inverse: bool):
+    """The merged-psi twiddles `w` [.., N] (psi_rev or psi_inv_rev) in
+    the order K1's register passes read them, so that the lanes of a warp
+    read consecutive words. Forward pass at stage s0 with R stages: stage
+    s0 + r's twiddle psi[2^(s0+r) + i0 * 2^r + q] moves to 2^(s0+r) +
+    q * 2^s0 + i0 (i0 the lane's block, q its sub-block). Inverse pass at
+    stride 2^s: stage r's psi_inv[h + i0 * 2^(R-r-1) + q] (h = N >>
+    (s + r + 1)) moves to h + q * (N >> (s + R)) + i0."""
+    out = np.zeros_like(w)
+    s = 0
+    for R in pass_stages(N):
+        for r in range(R):
+            if inverse:
+                h, nq, ni = N >> (s + r + 1), 1 << (R - r - 1), N >> (s + R)
+                q, i0 = np.meshgrid(np.arange(nq), np.arange(ni), indexing="ij")
+                out[..., h + q * ni + i0] = w[..., h + i0 * nq + q]
+            else:
+                m, nq, ni = 1 << (s + r), 1 << r, 1 << s
+                q, i0 = np.meshgrid(np.arange(nq), np.arange(ni), indexing="ij")
+                out[..., m + q * ni + i0] = w[..., m + i0 * nq + q]
+        s += R
+    return out
+
+
+def bank_swizzle(N: int) -> np.ndarray:
+    """u8 [N]: h of every in-row offset x (`SWIZZLE` over x's bits)."""
+    x = np.arange(N)
+    h = np.zeros_like(x)
+    for b in range(5, N.bit_length() - 1):
+        h ^= ((x >> b) & 1) * SWIZZLE[b - 5]
+    return h.astype(np.uint8)
+
+
+def fits_u32(primes, terms: int) -> bool:
+    """Whether terms * (p_max - 1)^2 fits 32 bits: K1 then sums products in
+    u32 and streams the BSK as u16 (pbs_common.cuh fits_u32)."""
+    pm = int(max(primes)) - 1
+    return terms * pm * pm < (1 << 32)
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """One K1 launch shape: `gt` gates per cluster tile (a power of two),
+    `tiles` clusters, the BSK streamed in chunks of `chunk` frequencies,
+    `smem` bytes of dynamic shared memory per block. One launch runs every
+    CMux group of the rotation."""
+
+    gt: int
+    tiles: int
+    chunk: int
+    smem: int
+    narrow: bool
+
+
+def _narrow(p) -> bool:
+    primes = primes_for(p.N)
+    return fits_u32(primes, p.gadget_rows) and fits_u32(primes, (1 << p.grouping) - 1)
+
+
+def chunk_freqs(p) -> int:
+    """Frequencies per streamed BSK chunk: the most (a power of two, at
+    most 128 and at most N) whose (2^g-1) x rows x (k+1) words fit
+    CHUNK_BYTES, and whose (k+1) x chunk items a block's threads cover."""
+    words = ((1 << p.grouping) - 1) * p.gadget_rows * (p.k + 1)
+    elt = 2 if _narrow(p) else 4
+    cf = min(p.N, 128)
+    while cf > 32 and (words * cf * elt > CHUNK_BYTES or (p.k + 1) * cf > THREADS):
+        cf //= 2
+    return cf
+
+
+def smem_bytes(p, gt: int, chunk: int) -> int:
+    """Dynamic shared memory of one K1 block (blind_rotate_mb.cu
+    `SmemLayout`): the BSK ring, its mbarriers, the tile's rows [rows, gt,
+    N] u32 (gadget rows, then the k+1 products in place), its quarter of
+    the accumulators [k+1, gt, N/4] u32, the pass-ordered twiddles of both
+    directions (u32 pairs), the power table [2N] u32, the swizzle [N] u8
+    and the group's a_i [MAX_TILE, 4] i32."""
+
+    def up(x, a=16):
+        return -(-x // a) * a
+
+    N, rows, kp1 = p.N, p.gadget_rows, p.k + 1
+    elt = 2 if _narrow(p) else 4
+    ring = STAGES * ((1 << p.grouping) - 1) * rows * kp1 * chunk * elt
+    return (
+        up(ring, 128) + up(STAGES * 8) + rows * gt * N * 4 + kp1 * gt * (N // 4) * 4
+        + 2 * N * 8 + 2 * N * 4 + up(N) + MAX_TILE * 4 * 4
+    )
+
+
+def tile_plan(p, G: int, slots) -> TilePlan:
+    """K1's launch shape for G gates at set p. Tiles are powers of two up
+    to the largest that fits SMEM_LIMIT; `slots(gt)` is how many clusters
+    the card holds at once (`cluster_slots`), so a launch runs in
+    ceil(tiles / slots) waves. A tile of gt gates takes
+    about gt + 1 gate-times per wave (its chain of barriers costs about a
+    gate's work: 1 : 1.5 : 2.6 : 5.0 at gt = 1, 2, 4, 8 measured at
+    GATES_128_K3 on an H100); the plan takes the tile of least waves x
+    (gt + 1), the narrowest on a tie."""
+    chunk = chunk_freqs(p)
+    if smem_bytes(p, 1, chunk) > SMEM_LIMIT:
+        raise ValueError(f"{p.name}: one gate takes {smem_bytes(p, 1, chunk)} bytes of shared memory")
+    best = None
+    gt = 1
+    while gt <= MAX_TILE and smem_bytes(p, gt, chunk) <= SMEM_LIMIT:
+        waves = _cdiv(_cdiv(G, gt), max(1, slots(gt)))
+        cost = waves * (gt + 1)
+        if best is None or cost < best[0]:
+            best = (cost, gt)
+        gt *= 2
+    gt = best[1]
+    return TilePlan(gt=gt, tiles=_cdiv(G, gt), chunk=chunk, smem=smem_bytes(p, gt, chunk),
+                    narrow=_narrow(p))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_for(dsk: pbs.DeviceServerKey, G: int) -> TilePlan:
+    """The tile plan K1 launches for G gates with key dsk on its card."""
+    return tile_plan(dsk.params, G, lambda gt: cluster_slots(dsk, gt))
+
+
+_SLOT_ARGTYPES = [ctypes.POINTER(ctypes.c_uint32)] + [_I] * 11 + [ctypes.POINTER(ctypes.c_int)] * 2
+_slots: dict = {}
+
+
+def cluster_slots(dsk: pbs.DeviceServerKey, gt: int) -> int:
+    """The clusters of K1 the card holds at once for tiles of gt gates at
+    dsk's set (cudaOccupancyMaxActiveClusters), asked once per set and
+    tile. Raises unless the kernel's shared memory for the tile, from its
+    own layout, is `smem_bytes`'s."""
+    p = dsk.params
+    key = (p.name, p.n, p.N, p.k, p.grouping, p.component_gadgets, gt, torch.cuda.current_device())
+    if key not in _slots:
+        (mbl, mlv), (bl, lv) = p.component_gadgets[0], p.component_gadgets[-1]
+        kk = mb_server_key(dsk)
+        out, smem = ctypes.c_int(0), ctypes.c_int(0)
+        rc = build.entry("blind_rotate_mb", _SLOT_ARGTYPES, "helm_blind_rotate_mb_clusters")(
+            kk.consts, p.n, p.N, p.k, p.grouping, mbl, mlv, bl, lv, gt, kk.chunk,
+            kk.bsk_k1.element_size(), ctypes.byref(out), ctypes.byref(smem),
+        )
+        build.check(rc, "helm_blind_rotate_mb_clusters")
+        if smem.value != smem_bytes(p, gt, kk.chunk):
+            raise RuntimeError(
+                f"{p.name}: K1 takes {smem.value} B of shared memory for {gt} gates, "
+                f"mb_pbs.smem_bytes says {smem_bytes(p, gt, kk.chunk)}"
+            )
+        _slots[key] = out.value
+    return _slots[key]
+
+
+def tiled_bsk(bsk_ntt: torch.Tensor, p, chunk: int, narrow: bool) -> torch.Tensor:
+    """K1's BSK layout: [n/g, 2^g-1, rows, k+1, NP, N] ->
+    [n/g, NP, N/chunk, 2^g-1, rows, k+1, chunk], so that each block (one
+    prime) streams one contiguous chunk of its group's slab at a time; as
+    i16 when `narrow` (every residue < 2^15), else i32."""
+    g1, nv1, rows, kp1, np_, N = bsk_ntt.shape
+    t = bsk_ntt.reshape(g1, nv1, rows, kp1, np_, N // chunk, chunk)
+    t = t.permute(0, 4, 5, 1, 2, 3, 6).contiguous()
+    return t.to(torch.int16) if narrow else t.to(torch.int32)
 
 
 @dataclass(frozen=True, eq=False)
 class MbKernelKey:
-    """The kernels' view of one server key, derived once per key (K1 and
-    K2 read the same layout; K2 leaves pw and ef unused).
+    """The kernels' view of one server key, derived once per key.
 
-    bsk is the NTT-domain BSK as u32 words in its natural
-    [n/g, 2^g-1, rows, k+1, NP, N] order, which is already the kernel's
-    layout: a thread per (prime, frequency) reads NP*N-strided words, so
-    a warp reads 128 contiguous bytes. The Shoup companion is dropped (the
-    kernel reduces with a Barrett constant per prime)."""
+    K2, K3, K4 and K6 read the NTT-domain BSK as u32 words in its natural
+    [n/g, 2^g-1, rows, k+1, NP, N] order (`bsk`), the twiddles, the power
+    table and the constants. K1 reads `bsk_k1` (`tiled_bsk`: chunked per
+    group and prime, i16 where every product sum fits u32; a second copy
+    of the BSK on the device, half or all of `bsk`'s bytes), `twf` / `twi`
+    (the twiddles and their Shoup companions as pairs [NP, N, 2] in
+    register-pass order, `twiddles_by_pass`) and `swizzle`
+    (`bank_swizzle`); those are None for grouping-1 keys. The Shoup
+    companion of the BSK is dropped (the kernels reduce with a Barrett
+    constant per prime)."""
 
     bsk: torch.Tensor  # i32 bit patterns
     psi: torch.Tensor  # i32 [NP, N] each
@@ -53,6 +262,11 @@ class MbKernelKey:
     pw: torch.Tensor  # i32 [NP, 2N]
     ef: torch.Tensor  # i32 [N]
     consts: ctypes.Array  # u32 [26]
+    bsk_k1: torch.Tensor | None = None
+    twf: torch.Tensor | None = None  # i32 [NP, N, 2]
+    twi: torch.Tensor | None = None
+    swizzle: torch.Tensor | None = None  # u8 [N]
+    chunk: int = 0
 
 
 _layouts: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -65,6 +279,7 @@ def mb_server_key(dsk: pbs.DeviceServerKey) -> MbKernelKey:
         return got
     tab = dsk.tab
     dev = dsk.device
+    p = dsk.params
 
     def i32(a):
         return torch.as_tensor(a.astype("int64")).to(torch.int32).to(dev)
@@ -83,6 +298,21 @@ def mb_server_key(dsk: pbs.DeviceServerKey) -> MbKernelKey:
         + [int(x) for x in tab.n_inv_sh]
         + [int(x) for x in garner]
     )
+    k1 = {}
+    if p.grouping > 1:
+        chunk = chunk_freqs(p)
+
+        def pairs(w, w_sh, inverse):
+            return i32(np.stack([twiddles_by_pass(w, tab.N, inverse),
+                                 twiddles_by_pass(w_sh, tab.N, inverse)], axis=-1))
+
+        k1 = dict(
+            bsk_k1=tiled_bsk(dsk.bsk_ntt, p, chunk, _narrow(p)),
+            twf=pairs(tab.psi_rev, tab.psi_rev_sh, False),
+            twi=pairs(tab.psi_inv_rev, tab.psi_inv_rev_sh, True),
+            swizzle=torch.from_numpy(bank_swizzle(tab.N)).to(dev),
+            chunk=chunk,
+        )
     key = MbKernelKey(
         bsk=dsk.bsk_ntt.contiguous(),
         psi=i32(tab.psi_rev),
@@ -92,6 +322,7 @@ def mb_server_key(dsk: pbs.DeviceServerKey) -> MbKernelKey:
         pw=pw.to(torch.int32).contiguous(),
         ef=ef.to(torch.int32).contiguous(),
         consts=(ctypes.c_uint32 * len(vals))(*vals),
+        **k1,
     )
     _layouts[dsk] = key
     return key
@@ -136,24 +367,23 @@ def blind_rotate_mb(
     if lwe_in.device.type != "cuda":
         raise NotImplementedError(f"blind_rotate_mb: no kernel for {lwe_in.device}")
     check_inputs(dsk, lwe_in, testv, "blind_rotate_mb")
+    if (p.grouping, p.gadget_rows) not in K1_BUILDS:
+        raise ValueError(
+            f"{p.name}: K1 has no build for grouping {p.grouping} with {p.gadget_rows} gadget rows"
+        )
     n, N, k = p.n, p.N, p.k
     G = lwe_in.shape[0]
     key = mb_server_key(dsk)
-    rows = p.gadget_rows
-    dev = lwe_in.device
+    plan = plan_for(dsk, G)
     acc = to_i32_bits(pbs.initial_acc(p, lwe_in, testv)).contiguous()
     abar = ops.mod_switch(lwe_in[:, :n], N).to(torch.int32).contiguous()
-    fbuf = torch.empty((G, rows, NUM_PRIMES, N), dtype=torch.int32, device=dev)
-    sbuf = torch.empty((G, k + 1, NUM_PRIMES, N), dtype=torch.int32, device=dev)
     (mbl, mlv), (bl, lv) = p.component_gadgets[0], p.component_gadgets[-1]
     rc = build.entry("blind_rotate_mb", _ARGTYPES)(
-        acc.data_ptr(), abar.data_ptr(), key.bsk.data_ptr(),
-        key.psi.data_ptr(), key.psi_sh.data_ptr(),
-        key.psi_inv.data_ptr(), key.psi_inv_sh.data_ptr(),
-        key.pw.data_ptr(), key.ef.data_ptr(),
-        fbuf.data_ptr(), sbuf.data_ptr(), key.consts,
-        G, n, N, k, p.grouping, mbl, mlv, bl, lv,
-        torch.cuda.current_stream(dev).cuda_stream,
+        acc.data_ptr(), abar.data_ptr(), key.bsk_k1.data_ptr(),
+        key.twf.data_ptr(), key.twi.data_ptr(), key.pw.data_ptr(),
+        key.swizzle.data_ptr(), key.consts,
+        G, n, N, k, p.grouping, mbl, mlv, bl, lv, plan.gt, plan.chunk, key.bsk_k1.element_size(),
+        torch.cuda.current_stream(lwe_in.device).cuda_stream,
     )
     build.check(rc, "helm_blind_rotate_mb")
     blind_rotate_mb.launches += 1
