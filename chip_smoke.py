@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase, on cuda:0
     python3 chip_smoke.py --only device,build,k1,k6
     python3 chip_smoke.py --only device,build,k1,k4,k3
+    python3 chip_smoke.py --only device,build,k1,k6,k2
 
 Phases, in order (each prints one line, with its seconds):
   device  the card's name and power limit (nvidia-smi), torch / CUDA versions
@@ -12,7 +13,8 @@ Phases, in order (each prints one line, with its seconds):
   k1      the multi-bit blind-rotation kernel (K1: one launch per rotation,
           a thread-block cluster of 4 blocks, one per CRT prime, per tile of
           gates, walking every CMux group with the tile's accumulators,
-          gadget rows and products in shared memory; the tile from
+          gadget rows and products in shared memory: the body of
+          csrc/rotate_tiles.cuh, which K6 and K2 share; the tile from
           ops/mb_pbs.py tile_plan, printed per width) against its plain torch
           version on the card, at TEST_PARAMS_K3, at tiny sets with N=1024,
           N=2048 and grouping 4, at GATES_128_K3 at the main path's widths
@@ -21,7 +23,9 @@ Phases, in order (each prints one line, with its seconds):
           ARITH_128_MB2 (N=2048, 6 rows, PRIMES with 65537) at a narrow
           merged-round width (G=8) and a wide one (G=1024): the words must be
           equal (tolerance 0, the arithmetic is exact); prints both times
-  k6      the prime-split blind-rotation kernel (K6) against its plain torch
+  k6      the prime-split blind-rotation kernel (K6: K1's body with the CRT
+          fold in place of Garner, one launch per rotation; its tile plan
+          printed per width) against its plain torch
           version (blind_rotate_prime_split) the same way, at TEST_PARAMS_K3,
           a tiny grouping-4 set, GATES_128_K3 at K1's widths, LUT_128_K2
           at G=2 and 256 and ARITH_128_MB2 at G=8 and 1024. Where k1 ran the
@@ -37,7 +41,9 @@ Phases, in order (each prints one line, with its seconds):
           tiny sets and GATES_128_K3 G=1024 and must equal them too
   k3      the gate-major blind-rotation kernel (K3) the same way (its plain
           version: blind_rotate_ladder)
-  k2      the single-bit blind-rotation kernel (K2) against its plain torch
+  k2      the single-bit blind-rotation kernel (K2: K1's body at grouping 1,
+          decomposing the rotated difference, one launch per rotation; its
+          tile plan printed per width) against its plain torch
           version the same way, at TEST_PARAMS (N=64), TEST_PARAMS_LUT
           (N=128), a tiny k=3 grouping-1 set, GATES_TPU at G=1 to 1024,
           GATES_PARAMS (6 rows) at G=37 and LUT_PARAMS (N=2048) at the LUT
@@ -396,17 +402,26 @@ class Smoke:
         # slots wide, each with its own test polynomial. ARITH_128_MB2 (6
         # rows x 2048 words: 48 KB per decompose block): chi-squared u32's
         # merged rounds, each slot with its group's test polynomial
-        def tile(params, G):
-            dsk = self.keys[params.name][2]
-            plan = mb_pbs.plan_for(dsk, G)
-            k1 = mb_pbs.mb_server_key(dsk).bsk_k1
-            return (f"{plan.tiles} tiles of {plan.gt} gates, {plan.smem} B of shared memory a block, "
-                    f"K1's BSK copy {k1.numel() * k1.element_size()} B")
-
         return self._check_kernel(
             "blind_rotate_mb", "K1", pbs.blind_rotate_multibit, mb_pbs.blind_rotate_mb,
-            self._k1_cases(), ("gates_128_k3", 1024), detail=tile,
+            self._k1_cases(), ("gates_128_k3", 1024), detail=self._tile("blind_rotate_mb"),
         )
+
+    def _tile(self, kernel):
+        """The `detail` of phases k1, k6 and k2: the width's tile plan for
+        `kernel`, the bytes of the chunked BSK copy it reads (bsk_k1) and
+        those of the natural BSK every route keeps (dsk.bsk_ntt)."""
+        from helm_tpu_torch.ops import mb_pbs
+
+        def tile(params, G):
+            dsk = self.keys[params.name][2]
+            plan = mb_pbs.plan_for(dsk, G, kernel)
+            k1 = mb_pbs.mb_server_key(dsk).bsk_k1
+            return (f"{plan.tiles} tiles of {plan.gt} gates, {plan.smem} B of shared memory a block, "
+                    f"the chunked BSK copy {k1.numel() * k1.element_size()} B, the natural BSK "
+                    f"{dsk.bsk_ntt.numel() * dsk.bsk_ntt.element_size()} B")
+
+        return tile
 
     def phase_k6(self):
         from helm_tpu_torch import params as P
@@ -425,7 +440,7 @@ class Smoke:
         )
         return self._check_kernel(
             "blind_rotate_ps", "K6", pbs.blind_rotate_prime_split, ps_pbs.blind_rotate_ps,
-            cases, ("gates_128_k3", 1024),
+            cases, ("gates_128_k3", 1024), detail=self._tile("blind_rotate_ps"),
         )
 
     #: the sets and widths K1 is checked at (phase k1), with the shapes
@@ -471,9 +486,13 @@ class Smoke:
             assert torch.equal(got, x), f"K4 inverse four-step != ntt_inv_four_step at {params.name}"
             notes.append(params.name)
         print(f"[k4] four-step transforms on the tensor cores == ntt.py at {', '.join(notes)}", flush=True)
+        def copy(params, G):
+            b = ts_pbs.ts_server_key(self.keys[params.name][2]).bsk
+            return f"K4's BSK copy {b.numel() * b.element_size()} B"
+
         return self._check_kernel(
             "blind_rotate_ts", "K4", pbs.blind_rotate_transposed, ts_pbs.blind_rotate_ts,
-            self._k1_cases(), ("gates_128_k3", 1024),
+            self._k1_cases(), ("gates_128_k3", 1024), detail=copy,
         )
 
     def phase_k3(self):
@@ -493,7 +512,8 @@ class Smoke:
         # TEST_PARAMS / TEST_PARAMS_LUT / the k=3 set take the 32-bit
         # accumulation path (PRIMES_512); GATES_TPU and GATES_PARAMS
         # (N=1024, PRIMES_1024) and LUT_PARAMS (N=2048, PRIMES) the 64-bit
-        # one. LUT_PARAMS' 6 rows x 2048 words fill 48 KB of shared memory.
+        # one. LUT_PARAMS' 6 rows x 2048 words take 48 KB of shared memory a
+        # gate, so its tiles hold 1-2 gates.
         # GATES_TPU at every width phase g1 gives K2: 1-4 slots (2-bit
         # adder, s27), 8-32 (c880-like), 64-256 (c880-like, 8 vectors),
         # 1024 (the AND batch); 37 is ragged. The LUT adder's levels are 2
@@ -509,7 +529,7 @@ class Smoke:
         )
         return self._check_kernel(
             "blind_rotate_sb", "K2", pbs.blind_rotate, sb_pbs.blind_rotate_sb,
-            cases, ("gates_tpu_v32", 1024),
+            cases, ("gates_tpu_v32", 1024), detail=self._tile("blind_rotate_sb"),
         )
 
     def _and_batch(self, p, seed, G=1024, iters=5):

@@ -81,6 +81,10 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("-c", "--cycles", type=int, default=1, metavar="NUMBER")
     ap.add_argument("-p", "--verbose", action="store_true")
     ap.add_argument(
+        "--tpu", "--gpu", "-g", action="store_true",
+        help="(accepted for parity with the reference's --gpu; the device is --device's)",
+    )
+    ap.add_argument(
         "--test-params", action="store_true",
         help="tiny noise-free parameters (test_tiny; test_tiny_lut for "
         "LUT netlists; test_tiny_arith with -a)",

@@ -2,8 +2,8 @@
 // interface: K6 of the port.
 //
 // Replaces the TPU kernel helm_tpu/ops/mxu_pbs.py::blind_rotate_fs_ps
-// (Pallas body _make_kernel_fs_ps, BSK layout mxu_server_key_ps). Computes
-// the same function as K1 (blind_rotate_mb.cu) and as
+// (:2425; Pallas body _make_kernel_fs_ps :2127, call :2526). Computes the
+// same function as K1 (blind_rotate_mb.cu) and as
 // helm_tpu_torch/fhe/pbs.py::blind_rotate_prime_split, word for word: for
 // each of the n/g groups of mask elements, the additive-identity CMux
 //     acc += INTT( sum_r NTT(dec(acc))_r (.) sum_v P_v (.) BSK_v )
@@ -12,258 +12,95 @@
 // (fhe/ntt.py crt_fold) in place of Garner.
 //
 // Design. The TPU kernel puts the prime on the grid and folds the primes
-// through running partial sums in scratch memory. Here a group is ONE
-// launch, grid (G, NP), with a thread-block cluster of NP = 4 blocks along
-// the prime axis: one cluster per gate, one block per (gate, prime). Each
-// block
-//   1. decomposes the gate's accumulator into gadget rows and reduces the
-//      digits mod its prime (decompose_rows, shared with K2, K3 and K4);
-//   2. runs the forward NTTs of the rows in shared memory;
-//   3. forms S_c = sum_r F_r (.) sum_v P_v (.) BSK_v[r, c] per frequency,
-//      P_v by K1's direct monomial lookup (NTT(X^a)[f] = psi^(a*e_f mod
-//      2N)), into rows 0..k of the same buffer (each thread owns its
-//      frequency column and holds the column's rows in registers before it
-//      writes);
-//   4. runs the inverse NTTs of the k+1 components, leaving its residues
-//      in its shared memory.
-// After cluster.sync(), block pi folds the pi-th quarter of the gate's
-// (k+1)*N coefficients: it reads the four primes' residues through
-// distributed shared memory (cluster.map_shared_rank), folds them and adds
-// the result into acc in device memory. A second cluster.sync() keeps
-// every block's shared memory alive until its peers have read it. So a
-// rotation is n/g launches, where K1 makes one.
+// through running partial sums in scratch memory. Here the primes are the
+// four blocks of a thread-block cluster: K1's body, rotate_tiles
+// (rotate_tiles.cuh, which describes the design and what bounds it), with
+// the bare accumulator as its word source and the CRT fold as its
+// epilogue. One launch per rotation, a tile of gates per cluster, every
+// group inside the launch, the intermediates in shared memory, the BSK
+// streamed once per tile from K1's chunked layout (ops/mb_pbs.py
+// tiled_bsk). Each block holds one prime's residues of the tile; after the
+// inverse NTTs, block pi reads the four primes' residues of its quarter of
+// the coefficients through distributed shared memory and folds them
+// (rotate_tiles.cuh CrtFold, with the argument that its quotient is
+// exact). The transforms, products and BSK bytes are K1's; the fold costs
+// four double multiply-adds a coefficient where Garner takes a chain of
+// Shoup products.
 //
-// The fold. x = sum_i r_i W_i - k P (mod 2^32) with k = floor(s + 0.5),
-// s = sum_i r_i * (W_i / P) in double precision. That k is exact: for
-// every parameter set |x| <= conv_bound <= 0.389 P (GATES_128_K3 with
-// PRIMES_512 is the largest share), so s lies at least 0.11 from a
-// half-integer, and the double sum of four products r_i < 2^17 by
-// fractions rounded to 53 bits errs by under 2^-32. The result is
-// Garner's balanced lift.
+// What bounds it is what bounds K1 (rotate_tiles.cuh): the integer
+// throughput of the products and butterflies at wide batches, the chain of
+// one group's barriers at narrow ones. The TPU kernel's design (one
+// launch per group, one gate per cluster, each block reading its prime's
+// slab of the group's BSK from L2 once per gate, and a permuted copy of
+// the BSK) is not carried over.
 //
-// What bounds it. Each block reads its prime's slab of the group's BSK,
-// (2^g-1) x rows x (k+1) x N words (196 KB at GATES_128_K3), once per
-// gate: the group's slab stays in L2 (0.79 MB), so device memory sees the
-// BSK about once per rotation and L2 sees it G times; the integer work is
-// K1's. Narrow batches are bound by the latency of one block's chain
-// (NTT stages, barriers, the L2 reads of its BSK slab) per launch, now one
-// launch per group; wide ones by how much of that latency other blocks
-// hide. So each rotation picks one of two register budgets for the same
-// code by the number of clusters it launches (rotate, below).
-//
-// Every entry point returns the first launch error (cudaLaunchKernelEx
-// returns it per launch) or cudaGetLastError(); nothing is allocated here
-// and nothing synchronises.
+// Every entry point returns the first launch error or cudaGetLastError();
+// nothing is allocated here and nothing synchronises.
 
-#include <cstdint>
-#include <initializer_list>
-#include <type_traits>
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
-#include "pbs_common.cuh"
-
-namespace cg = cooperative_groups;
+#include "rotate_tiles.cuh"
 
 namespace {
 
-// the CRT fold's constants (fhe/ntt.py CrtConstants)
-struct Crt {
-  uint32_t w_mod[NP];  // W_i mod 2^32
-  double frac[NP];     // W_i / P
-};
-
-#define ROTATE_GROUP_PARAMS                                                              \
-  uint32_t *__restrict__ acc, const int *__restrict__ abar,                              \
-      const uint32_t *__restrict__ bsk_j, int group, const uint32_t *__restrict__ psi,   \
-      const uint32_t *__restrict__ psi_sh, const uint32_t *__restrict__ psi_inv,         \
-      const uint32_t *__restrict__ psi_inv_sh, const uint32_t *__restrict__ pw,          \
-      const int *__restrict__ ef, Shape S, Consts K, Crt C
-#define ROTATE_GROUP_ARGS acc, abar, bsk_j, group, psi, psi_sh, psi_inv, psi_inv_sh, pw, ef, S, K, C
-
-// One group of the rotation: a cluster of NP blocks per gate, block rank
-// = prime (cluster dims (1, NP, 1) over grid (G, NP)).
-// bsk_j: this group's slab [NP, 2^g-1, rows, k+1, N] (ps_server_key).
-template <int GB, bool NARROW>
-__device__ __forceinline__ void rotate_group(ROTATE_GROUP_PARAMS) {
-  using AT = typename std::conditional<NARROW, uint32_t, unsigned long long>::type;
-  constexpr int NV1 = (1 << GB) - 1;  // non-empty subsets
-  cg::cluster_group cluster = cg::this_cluster();
-  // [rows, N]: the gadget rows, then rows 0..k hold the k+1 components
-  uint32_t* buf = reinterpret_cast<uint32_t*>(smem_raw);
-  const int gate = blockIdx.x, pi = blockIdx.y;
-  const int N = S.N;
-
-  decompose_rows(AccWords{acc}, buf, gate, pi, S, K);
-  ntt_fwd_rows(buf, S.rows, pi, psi, psi_sh, S, K);
-
-  const uint32_t p = K.p[pi], mu32 = K.mu32[pi];
-  const unsigned long long mu = K.mu[pi];
-  auto reduce = [&](AT x) -> uint32_t {
-    if constexpr (NARROW) return reduce32(x, p, mu32);
-    else return reduce64(x, p, mu);
-  };
-  int a[GB];
-  const int* ag = abar + (size_t)gate * S.n + group * GB;
-#pragma unroll
-  for (int i = 0; i < GB; ++i) a[i] = __ldg(ag + i);
-  const uint32_t* pwp = pw + pi * 2 * N;
-  const uint32_t* bp = bsk_j + (size_t)pi * NV1 * S.rows * S.kp1 * N;
-  const int mask2n = 2 * N - 1;
-  for (int f = threadIdx.x; f < N; f += blockDim.x) {
-    const int e = __ldg(ef + f);
-    uint32_t d[GB];
-#pragma unroll
-    for (int i = 0; i < GB; ++i)  // NTT(X^a_i) - 1; psi^t >= 1 so no wrap
-      d[i] = __ldg(pwp + ((a[i] * e) & mask2n)) - 1u;
-    uint32_t P[NV1 + 1];
-    P[0] = 1;
-#pragma unroll
-    for (int v = 1; v <= NV1; ++v) {
-      const int lo = __ffs(v) - 1;
-      P[v] = (v == (1 << lo)) ? d[lo] : reduce((AT)P[v & (v - 1)] * d[lo]);
-    }
-    uint32_t F[MAX_ROWS];
-#pragma unroll
-    for (int r = 0; r < MAX_ROWS; ++r)
-      if (r < S.rows) F[r] = buf[r * N + f];
-    for (int c = 0; c < S.kp1; ++c) {
-      AT s = 0;
-#pragma unroll
-      for (int v = 1; v <= NV1; ++v) {
-        const uint32_t* bv = bp + ((size_t)((v - 1) * S.rows) * S.kp1 + c) * N + f;
-        AT t = 0;
-#pragma unroll
-        for (int r = 0; r < MAX_ROWS; ++r)
-          if (r < S.rows) t += (AT)F[r] * __ldg(bv + (size_t)r * S.kp1 * N);
-        s += (AT)P[v] * reduce(t);
-      }
-      buf[c * N + f] = reduce(s);
-    }
-  }
-
-  ntt_inv_rows(buf, S.kp1, FixedPrime{pi}, psi_inv, psi_inv_sh, S, K);
-  cluster.sync();  // every prime's residues are in its block's shared memory
-
-  const uint32_t* peer[NP];
-#pragma unroll
-  for (int i = 0; i < NP; ++i) peer[i] = cluster.map_shared_rank(buf, i);
-  const int chunk = S.kp1 * N / NP;  // N >= 64, so a multiple of the 4 primes
-  uint32_t* dst = acc + (size_t)gate * S.kp1 * N;
-  for (int idx = pi * chunk + threadIdx.x; idx < (pi + 1) * chunk; idx += blockDim.x) {
-    uint32_t sum = 0;
-    double s = 0.0;
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      const uint32_t r = mul_shoup(peer[i][idx], K.n_inv[i], K.n_inv_sh[i], K.p[i]);
-      sum += r * C.w_mod[i];  // wrapping == mod 2^32
-      s += (double)r * C.frac[i];
-    }
-    const uint32_t kq = (uint32_t)(long long)floor(s + 0.5);  // s in [0, 2^19)
-    dst[idx] += sum - kq * K.prod_mod_q;
-  }
-  cluster.sync();  // no block leaves while a peer may still read its residues
+// The build of rotate_tiles with the CRT fold for a shape, or nullptr when
+// there is none: K1's builds (ops/mb_pbs.py K1_BUILDS), grouping 2 with 4,
+// 6, 8 or 9 gadget rows and grouping 4 with 4. No set of params.py has
+// grouping 3, so it has no build (the wrapper refuses it)
+template <int GB, int ROWS>
+Kernel<CrtFold> build_of(bool narrow) {
+  return narrow ? rotate_tiles<GB, ROWS, true, AccQuarter, CrtFold>
+                : rotate_tiles<GB, ROWS, false, AccQuarter, CrtFold>;
 }
 
-// The same code under two register budgets (see rotate): as the compiler
-// likes it, and held to two blocks per SM
-template <int GB, bool NARROW>
-__global__ void rotate_group_ps(ROTATE_GROUP_PARAMS) {
-  rotate_group<GB, NARROW>(ROTATE_GROUP_ARGS);
-}
-template <int GB, bool NARROW>
-__global__ void __launch_bounds__(THREADS, 2) rotate_group_ps_bounded(ROTATE_GROUP_PARAMS) {
-  rotate_group<GB, NARROW>(ROTATE_GROUP_ARGS);
-}
-
-// The device pointers of one rotation
-struct Args {
-  uint32_t* acc;
-  const int* abar;
-  const uint32_t *bsk, *psi, *psi_sh, *psi_inv, *psi_inv_sh, *pw;
-  const int* ef;
-};
-
-// Every group of one rotation, one launch each, with the variant of
-// rotate_group_ps that suits the width. At most two waves of clusters of
-// the unbounded variant (one block per SM at g=2: 176 registers, its 2^g-1
-// x rows BSK loads of a frequency all in flight) beat the variant held to
-// 128 registers (two blocks per SM, its loads in turn); wider batches go
-// to the latter, whose extra blocks hide the latency (GATES_128_K3 on an
-// H100 80GB HBM3 at 700 W: 19.2 against 36.1 ms at G=8, 46.1 against
-// 37.6 at G=64, 476 against 244 at G=1024; chip_smoke.py phase k6).
-template <int GB, bool NARROW>
-cudaError_t rotate(const Shape& S, const Consts& K, const Crt& C, size_t smem, const Args& a,
-                   cudaStream_t st) {
-  auto unbounded = rotate_group_ps<GB, NARROW>;
-  auto bounded = rotate_group_ps_bounded<GB, NARROW>;
-  for (auto kern : {unbounded, bounded}) {
-    cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(S.G, NP);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = NP;  // the grid's prime axis is exactly one cluster
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int fit = 0;  // clusters of the unbounded variant resident at once
-  cudaError_t e = cudaOccupancyMaxActiveClusters(&fit, unbounded, &cfg);
-  if (e != cudaSuccess) return e;
-  const auto kern = S.G <= 2 * fit ? unbounded : bounded;
-  const int nv1 = (1 << GB) - 1;
-  const size_t slab = (size_t)NP * nv1 * S.rows * S.kp1 * S.N;
-  for (int j = 0; j < S.n / GB; ++j) {
-    e = cudaLaunchKernelEx(&cfg, kern, a.acc, a.abar, a.bsk + slab * j, j, a.psi, a.psi_sh,
-                           a.psi_inv, a.psi_inv_sh, a.pw, a.ef, S, K, C);
-    if (e != cudaSuccess) return e;
-    if (j == 0) {
-      e = cudaGetLastError();
-      if (e != cudaSuccess) return e;
-    }
-  }
-  return cudaGetLastError();
+Kernel<CrtFold> select_kernel(const Shape& S, bool narrow) {
+  if (S.g == 2 && S.rows == 4) return build_of<2, 4>(narrow);
+  if (S.g == 2 && S.rows == 6) return build_of<2, 6>(narrow);
+  if (S.g == 2 && S.rows == 8) return build_of<2, 8>(narrow);
+  if (S.g == 2 && S.rows == 9) return build_of<2, 9>(narrow);
+  if (S.g == 4 && S.rows == 4 && !narrow) return rotate_tiles<4, 4, false, AccQuarter, CrtFold>;
+  return nullptr;
 }
 
 }  // namespace
 
-// consts (host, 26 words): see load_consts in pbs_common.cuh. crt_w: u32
-// [4], crt_frac: f64 [4] (fhe/ntt.py crt_constants).
-// acc: u32 [G, k+1, N], in/out. abar: i32 [G, n] in [0, 2N).
-// bsk: u32 [n/g, NP, 2^g-1, rows, k+1, N] (ops/ps_pbs.py ps_server_key).
-// psi*: u32 [NP, N]. pw: u32 [NP, 2N]. ef: i32 [N]. Returns a cudaError_t.
+// Arguments as helm_blind_rotate_mb's (blind_rotate_mb.cu: K1's key
+// layout, tile and chunk), and crt_w: u32 [4], crt_frac: f64 [4] (fhe/ntt.py
+// crt_constants). One launch. Returns a cudaError_t.
 extern "C" int helm_blind_rotate_ps(
-    void* acc, const void* abar, const void* bsk, const void* psi,
-    const void* psi_sh, const void* psi_inv, const void* psi_inv_sh,
-    const void* pw, const void* ef, const uint32_t* consts, const uint32_t* crt_w,
-    const double* crt_frac, int G, int n, int N, int k, int g, int mask_bl,
-    int mask_lv, int bl, int lv, void* stream) {
+    void* acc, const void* abar, const void* bsk, const void* twf, const void* twi,
+    const void* pw, const void* swz, const uint32_t* consts, const uint32_t* crt_w,
+    const double* crt_frac, int G, int n, int N, int k, int g, int mask_bl, int mask_lv, int bl,
+    int lv, int gt, int cf, int elt, void* stream) {
   Shape S;
   Consts K;
-  if (!make_shape(S, G, n, N, k, g, mask_bl, mask_lv, bl, lv) || g < 2 || g > 4 ||
-      n % g != 0 || !load_consts(K, consts))
+  Plan L;
+  Kernel<CrtFold> kern;
+  size_t smem;
+  if (!prepare(S, K, L, kern, smem, select_kernel, consts, G, n, N, k, g, mask_bl, mask_lv, bl,
+               lv, gt, cf, elt))
     return (int)cudaErrorInvalidValue;
-  Crt C;
+  CrtFold E;
   for (int i = 0; i < NP; ++i) {
-    C.w_mod[i] = crt_w[i];
-    C.frac[i] = crt_frac[i];
+    E.w_mod[i] = crt_w[i];
+    E.frac[i] = crt_frac[i];
   }
-  const bool narrow = fits_u32(K, S.rows) && fits_u32(K, (1 << g) - 1);
-  const size_t smem = (size_t)S.rows * N * sizeof(uint32_t);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  const Args a{(uint32_t*)acc, (const int*)abar, (const uint32_t*)bsk, (const uint32_t*)psi,
-               (const uint32_t*)psi_sh, (const uint32_t*)psi_inv,
-               (const uint32_t*)psi_inv_sh, (const uint32_t*)pw, (const int*)ef};
-  using Rotate = cudaError_t (*)(const Shape&, const Consts&, const Crt&, size_t, const Args&,
-                                 cudaStream_t);
-  const Rotate wide_fns[3] = {rotate<2, false>, rotate<3, false>, rotate<4, false>};
-  const Rotate narrow_fns[3] = {rotate<2, true>, rotate<3, true>, rotate<4, true>};
-  return (int)(narrow ? narrow_fns : wide_fns)[g - 2](S, K, C, smem, a, (cudaStream_t)stream);
+  const Args args{(uint32_t*)acc,       (const int*)abar,     bsk,
+                  (const uint2*)twf,    (const uint2*)twi,    (const uint32_t*)pw,
+                  (const uint8_t*)swz};
+  return launch_tiles(kern, smem, args, S, K, L, E, stream);
+}
+
+// The clusters of K6 the card holds at once for tiles of gt gates, and
+// its dynamic shared memory: as helm_blind_rotate_mb_clusters.
+extern "C" int helm_blind_rotate_ps_clusters(const uint32_t* consts, int n, int N, int k, int g,
+                                             int mask_bl, int mask_lv, int bl, int lv, int gt,
+                                             int cf, int elt, int* clusters, int* smem_bytes) {
+  Shape S;
+  Consts K;
+  Plan L;
+  Kernel<CrtFold> kern;
+  size_t smem;
+  if (!prepare(S, K, L, kern, smem, select_kernel, consts, gt, n, N, k, g, mask_bl, mask_lv, bl,
+               lv, gt, cf, elt))
+    return (int)cudaErrorInvalidValue;
+  return active_clusters(kern, smem, clusters, smem_bytes);
 }

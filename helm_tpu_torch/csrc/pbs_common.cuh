@@ -1,30 +1,27 @@
 // Device code shared by the blind-rotation kernels (sm_90a):
 // blind_rotate_mb.cu (K1, multi-bit), blind_rotate_sb.cu (K2,
 // single-bit), blind_rotate_gm.cu (K3, gate-major), blind_rotate_ts.cu
-// (K4, transposed) and blind_rotate_ps.cu (K6, prime-split). Each .cu
-// builds into its own library, so everything here sits in an anonymous
-// namespace and is compiled once per kernel file.
+// (K4, transposed) and blind_rotate_ps.cu (K6, prime-split); K1, K2 and
+// K6 through their common body, rotate_tiles.cuh. Each .cu builds into
+// its own library, so everything here sits in an anonymous namespace and
+// is compiled once per kernel file.
 //
 // What the kernels share:
 //   - the modular arithmetic of helm_tpu_torch/fhe/ntt.py (Shoup
 //     multiplies, Barrett reductions, Garner recombination);
 //   - decompose_rows: signed gadget decomposition of the k+1 GLWE
 //     components of one gate (params.component_gadgets), digit residues
-//     mod one prime, into shared memory. The words it decomposes come
-//     from a source functor: the bare accumulator for K3, K4 and K6,
-//     (X^{a_i} - 1) * acc for K2 (K1 decomposes inline, fused with its
-//     first register pass);
+//     mod one prime, into shared memory, of the bare accumulator
+//     (AccWords) for K3 and K4 (rotate_tiles decomposes inline, fused with
+//     its first register pass);
 //   - ntt_fwd_rows / ntt_inv_rows: the forward and inverse NTTs of rows
-//     in shared memory (K2, K3, K6);
-//   - decompose_fwd (K2): decompose_rows + the forward NTT of every
-//     gadget row, one (gate, prime) per block;
-//   - inverse_garner (K2): inverse NTT over the NP primes, Garner with
-//     the balanced lift, acc += result;
-//   - the register-pass NTTs of K1 (fwd_radix / inv_radix / RowSwizzle,
-//     below inverse_garner): a thread holds 8 words and runs up to 3
-//     radix-2 stages on them in registers; shared memory only between
-//     passes, through a bank swizzle, with the twiddles in pass order;
-//   - K1's asynchronous copies (mbarrier, cp.async.bulk);
+//     in shared memory (K3);
+//   - the register-pass NTTs of rotate_tiles (fwd_radix / inv_radix /
+//     RowSwizzle): a thread holds 8 words and runs up to 3 radix-2 stages
+//     on them in registers; shared memory only between passes, through a
+//     bank swizzle, with the twiddles in pass order;
+//   - rotate_tiles' asynchronous copies (mbarrier, cp.async.bulk) and
+//     distributed shared memory;
 //   - the host-side unpacking and checking of the shape and the constants.
 
 #pragma once
@@ -36,7 +33,7 @@ namespace {
 
 constexpr int NP = 4;         // CRT primes (fhe/modring.py NUM_PRIMES)
 constexpr int MAX_ROWS = 16;  // gadget rows k*l_mask + l
-constexpr int THREADS = 256;  // decompose_fwd and inverse_garner
+constexpr int THREADS = 256;  // K3 and K4
 
 struct Consts {
   uint32_t p[NP];
@@ -110,8 +107,8 @@ __device__ __forceinline__ uint32_t garner(uint32_t r0, uint32_t r1, uint32_t r2
   return v3 > K.half_p3 ? x - K.prod_mod_q : x;        // balanced lift
 }
 
-// The source of the words decompose_rows decomposes for K3, K4 and K6:
-// the bare accumulator, acc [G, k+1, N]
+// The source of the words decompose_rows decomposes for K3 and K4: the
+// bare accumulator, acc [G, k+1, N]
 struct AccWords {
   const uint32_t* acc;
   __device__ __forceinline__ uint32_t operator()(const Shape& S, int gate, int c,
@@ -120,11 +117,8 @@ struct AccWords {
   }
 };
 
-// Which prime a row of an NTT over several rows is reduced by: the row
-// itself (inverse_garner: one row per prime), or one prime for every row
-struct RowPrime {
-  __device__ __forceinline__ int operator()(int row) const { return row; }
-};
+// Which prime a row of an NTT over several rows is reduced by: one prime
+// for every row
 struct FixedPrime {
   int pi;
   __device__ __forceinline__ int operator()(int) const { return pi; }
@@ -227,55 +221,13 @@ __device__ __forceinline__ void ntt_inv_rows(uint32_t* buf, int nrows, PrimeOf p
   }
 }
 
-// 1. gadget decomposition + forward NTT of every row, one (gate, prime)
-//    per block -> F [G, rows, NP, N].
-template <class Src>
-__global__ void decompose_fwd(Src src, uint32_t* __restrict__ fbuf,
-                              const uint32_t* __restrict__ psi,
-                              const uint32_t* __restrict__ psi_sh, Shape S,
-                              Consts K) {
-  uint32_t* buf = reinterpret_cast<uint32_t*>(smem_raw);  // [rows, N]
-  const int gate = blockIdx.x, pi = blockIdx.y;
-  const int N = S.N, logN = S.logN;
-  decompose_rows(src, buf, gate, pi, S, K);
-  ntt_fwd_rows(buf, S.rows, pi, psi, psi_sh, S, K);
-  uint32_t* out = fbuf + (size_t)gate * S.rows * NP * N + (size_t)pi * N;
-  for (int idx = threadIdx.x; idx < S.rows * N; idx += blockDim.x) {
-    const int r = idx >> logN, coef = idx & (N - 1);
-    out[(size_t)r * NP * N + coef] = buf[idx];
-  }
-}
-
-// 3. inverse NTT over the NP primes of one (gate, component), Garner,
-//    accumulate into acc
-__global__ void inverse_garner(uint32_t* __restrict__ acc,
-                               const uint32_t* __restrict__ sbuf,
-                               const uint32_t* __restrict__ psi_inv,
-                               const uint32_t* __restrict__ psi_inv_sh,
-                               Shape S, Consts K) {
-  uint32_t* buf = reinterpret_cast<uint32_t*>(smem_raw);  // [NP, N]
-  const int gate = blockIdx.x, c = blockIdx.y;
-  const int N = S.N, NPN = NP * N;
-  const uint32_t* src = sbuf + ((size_t)gate * S.kp1 + c) * NPN;
-  for (int idx = threadIdx.x; idx < NPN; idx += blockDim.x) buf[idx] = src[idx];
-  ntt_inv_rows(buf, NP, RowPrime{}, psi_inv, psi_inv_sh, S, K);
-  uint32_t* dst = acc + ((size_t)gate * S.kp1 + c) * N;
-  for (int coef = threadIdx.x; coef < N; coef += blockDim.x) {
-    uint32_t r[NP];
-#pragma unroll
-    for (int i = 0; i < NP; ++i)
-      r[i] = mul_shoup(buf[i * N + coef], K.n_inv[i], K.n_inv_sh[i], K.p[i]);
-    dst[coef] += garner(r[0], r[1], r[2], r[3], K);
-  }
-}
-
 // ---------------------------------------------------------------------
-// Register-pass NTTs (K1). A pass runs R <= 3 radix-2 stages on the 2^R
-// words of a block a thread holds in registers, so a transform of N =
-// 2^logN words is ceil(logN / 3) passes with a shared-memory exchange
-// between them (3 at N = 512, 4 at N = 1024 and 2048) in place of one per
-// stage. The stages of pass P are R = min(3, logN - 3P) (pass_stages in
-// ops/mb_pbs.py).
+// Register-pass NTTs (rotate_tiles: K1, K2, K6). A pass runs R <= 3
+// radix-2 stages on the 2^R words of a block a thread holds in registers,
+// so a transform of N = 2^logN words is ceil(logN / 3) passes with a
+// shared-memory exchange between them (3 at N = 512, 4 at N = 1024 and
+// 2048) in place of one per stage. The stages of pass P are R = min(3,
+// logN - 3P) (pass_stages in ops/mb_pbs.py).
 //   forward (merged-psi Cooley-Tukey, natural -> bit-reversed), pass at
 //   stage s0: block (i0, j), words x_k = i0 * (N >> s0) + k * tl + j with
 //   tl = N >> (s0 + R); stage s0 + r pairs the k that differ in bit
@@ -288,10 +240,10 @@ __global__ void inverse_garner(uint32_t* __restrict__ acc,
 // (twiddles_by_pass: the lanes of a warp, consecutive i0, read consecutive
 // words) as (w, w_sh) pairs.
 
-// The modular add, subtract and Shoup multiply of K1's passes: the same
-// values as add_mod / sub_mod / mul_shoup, the correction as an unsigned
-// min (a wrapped difference is larger than any residue), one instruction
-// fewer each
+// The modular add, subtract and Shoup multiply of the register passes:
+// the same values as add_mod / sub_mod / mul_shoup, the correction as an
+// unsigned min (a wrapped difference is larger than any residue), one
+// instruction fewer each
 __device__ __forceinline__ uint32_t add_mod_min(uint32_t a, uint32_t b, uint32_t p) {
   const uint32_t r = a + b;
   return min(r, r - p);
@@ -433,7 +385,7 @@ __device__ __forceinline__ void ntt_passes(uint32_t* buf, int nrows, int gt, int
 
 // ---------------------------------------------------------------------
 // Asynchronous bulk copies into shared memory, completed on an mbarrier
-// (K1's BSK ring)
+// (rotate_tiles' BSK ring)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));

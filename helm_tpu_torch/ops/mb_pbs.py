@@ -12,10 +12,13 @@ the transposed K4 (`ops/ts_pbs.py`).
 
 K1 is one launch per rotation: a cluster of NP blocks (one per CRT prime)
 owns a tile of gates and walks every group with the tile's accumulator in
-shared memory. `tile_plan` picks the tile for a width from the shared-
-memory budget; `mb_server_key` lays the BSK out in the frequency chunks
-the kernel streams, and the twiddles in the order its register passes
-read them (`pass_stages`, `twiddles_by_pass`, `bank_swizzle`).
+shared memory. Its body (`csrc/rotate_tiles.cuh`) is also K6's (with the
+CRT fold in place of Garner) and K2's (at grouping 1, with the rotated
+difference as the decomposed words); `rotate_tiles` below launches any of
+the three. `tile_plan` picks the tile for a width from the shared-memory
+budget; `mb_server_key` lays the BSK out in the frequency chunks the
+kernels stream, and the twiddles in the order their register passes read
+them (`pass_stages`, `twiddles_by_pass`, `bank_swizzle`).
 
 Dispatch is by the device of the input tensor: on the CPU the plain
 torch version (`fhe/pbs.py`) runs; on a CUDA tensor the kernel is
@@ -25,6 +28,7 @@ launched, or an error is raised — there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import weakref
 from dataclasses import dataclass
@@ -33,19 +37,21 @@ import numpy as np
 import torch
 
 from ..fhe import ops, pbs
-from ..fhe.modring import primes_for
+from ..fhe.modring import NUM_PRIMES, primes_for
 from ..fhe.ntt import from_i32_bits, to_i32_bits
+from ..params import TfheParams
 from . import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 7 + [ctypes.POINTER(ctypes.c_uint32)] + [_I] * 12 + [_P]
 
-#: K1's launch shape (csrc/blind_rotate_mb.cu): threads per block, BSK
-#: ring stages, the dynamic shared memory a block may take (227 KB), the
-#: largest gate tile, and the bytes of one streamed BSK chunk. The kernel
-#: checks every launch against its own copy of these and of `smem_bytes`
-#: (`cluster_slots` holds the two shared-memory sums equal on the card)
+#: the launch shape of K1, K6 and K2 (csrc/rotate_tiles.cuh): threads per
+#: block, BSK ring stages, the dynamic shared memory a block may take (227
+#: KB), the largest gate tile, and the bytes of one streamed BSK chunk. The
+#: kernel checks every launch against its own copy of these and of
+#: `smem_bytes` (`cluster_slots` holds the two shared-memory sums equal on
+#: the card)
 THREADS = 512
 STAGES = 2
 SMEM_LIMIT = 232448
@@ -60,9 +66,14 @@ CHUNK_BYTES = 24 * 1024
 SWIZZLE = (25, 31, 21, 22, 11, 9, 26, 18, 8)
 
 
-#: (grouping, gadget rows) that K1 has a build for (blind_rotate_mb.cu
-#: select_kernel): every multi-bit set of params.py
+#: (grouping, gadget rows) that K1 and K6 have a build for
+#: (blind_rotate_mb.cu and blind_rotate_ps.cu select_kernel): every
+#: multi-bit set of params.py (none has grouping 3)
 K1_BUILDS = frozenset({(2, 4), (2, 6), (2, 8), (2, 9), (4, 4)})
+#: (grouping, gadget rows) that K2 has a build for (blind_rotate_sb.cu
+#: select_kernel): every grouping-1 set of params.py, and the tiny k=3 one
+#: of chip_smoke.py's phase k2
+K2_BUILDS = frozenset({(1, 4), (1, 6), (1, 8)})
 
 
 def pass_stages(N: int) -> list:
@@ -146,12 +157,13 @@ def chunk_freqs(p) -> int:
 
 
 def smem_bytes(p, gt: int, chunk: int) -> int:
-    """Dynamic shared memory of one K1 block (blind_rotate_mb.cu
+    """Dynamic shared memory of one block of K1, K6 or K2 (rotate_tiles.cuh
     `SmemLayout`): the BSK ring, its mbarriers, the tile's rows [rows, gt,
     N] u32 (gadget rows, then the k+1 products in place), its quarter of
     the accumulators [k+1, gt, N/4] u32, the pass-ordered twiddles of both
-    directions (u32 pairs), the power table [2N] u32, the swizzle [N] u8
-    and the group's a_i [MAX_TILE, 4] i32."""
+    directions (u32 pairs), the power table [2N] u32 (only for grouping >
+    1: K2 scales by no subset polynomial), the swizzle [N] u8 and the
+    group's a_i [MAX_TILE, 4] i32."""
 
     def up(x, a=16):
         return -(-x // a) * a
@@ -161,19 +173,19 @@ def smem_bytes(p, gt: int, chunk: int) -> int:
     ring = STAGES * ((1 << p.grouping) - 1) * rows * kp1 * chunk * elt
     return (
         up(ring, 128) + up(STAGES * 8) + rows * gt * N * 4 + kp1 * gt * (N // 4) * 4
-        + 2 * N * 8 + 2 * N * 4 + up(N) + MAX_TILE * 4 * 4
+        + 2 * N * 8 + (2 * N * 4 if p.grouping > 1 else 0) + up(N) + MAX_TILE * 4 * 4
     )
 
 
 def tile_plan(p, G: int, slots) -> TilePlan:
-    """K1's launch shape for G gates at set p. Tiles are powers of two up
-    to the largest that fits SMEM_LIMIT; `slots(gt)` is how many clusters
-    the card holds at once (`cluster_slots`), so a launch runs in
-    ceil(tiles / slots) waves. A tile of gt gates takes
-    about gt + 1 gate-times per wave (its chain of barriers costs about a
-    gate's work: 1 : 1.5 : 2.6 : 5.0 at gt = 1, 2, 4, 8 measured at
-    GATES_128_K3 on an H100); the plan takes the tile of least waves x
-    (gt + 1), the narrowest on a tie."""
+    """The launch shape of K1, K6 or K2 for G gates at set p. Tiles are
+    powers of two up to the largest that fits SMEM_LIMIT; `slots(gt)` is how
+    many clusters the card holds at once (`cluster_slots`), so a launch runs
+    in ceil(tiles / slots) waves. A tile of gt gates takes about gt + 1
+    gate-times per wave (its chain of barriers costs about a gate's work:
+    1 : 1.5 : 2.6 : 5.0 at gt = 1, 2, 4, 8 measured for K1 at GATES_128_K3
+    on an H100); the plan takes the tile of least waves x (gt + 1), the
+    narrowest on a tie."""
     chunk = chunk_freqs(p)
     if smem_bytes(p, 1, chunk) > SMEM_LIMIT:
         raise ValueError(f"{p.name}: one gate takes {smem_bytes(p, 1, chunk)} bytes of shared memory")
@@ -194,34 +206,37 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan_for(dsk: pbs.DeviceServerKey, G: int) -> TilePlan:
-    """The tile plan K1 launches for G gates with key dsk on its card."""
-    return tile_plan(dsk.params, G, lambda gt: cluster_slots(dsk, gt))
+def plan_for(dsk: pbs.DeviceServerKey, G: int, kernel: str = "blind_rotate_mb") -> TilePlan:
+    """The tile plan `kernel` (K1 blind_rotate_mb, K6 blind_rotate_ps or K2
+    blind_rotate_sb) launches for G gates with key dsk on its card."""
+    return tile_plan(dsk.params, G, lambda gt: cluster_slots(dsk, gt, kernel))
 
 
 _SLOT_ARGTYPES = [ctypes.POINTER(ctypes.c_uint32)] + [_I] * 11 + [ctypes.POINTER(ctypes.c_int)] * 2
 _slots: dict = {}
 
 
-def cluster_slots(dsk: pbs.DeviceServerKey, gt: int) -> int:
-    """The clusters of K1 the card holds at once for tiles of gt gates at
-    dsk's set (cudaOccupancyMaxActiveClusters), asked once per set and
-    tile. Raises unless the kernel's shared memory for the tile, from its
-    own layout, is `smem_bytes`'s."""
+def cluster_slots(dsk: pbs.DeviceServerKey, gt: int, kernel: str = "blind_rotate_mb") -> int:
+    """The clusters of `kernel` (csrc/<kernel>.cu: K1, K6 or K2) the card
+    holds at once for tiles of gt gates at dsk's set
+    (cudaOccupancyMaxActiveClusters), asked once per kernel, set and tile.
+    Raises unless the kernel's shared memory for the tile, from its own
+    layout, is `smem_bytes`'s."""
     p = dsk.params
-    key = (p.name, p.n, p.N, p.k, p.grouping, p.component_gadgets, gt, torch.cuda.current_device())
+    key = (kernel, p.name, p.n, p.N, p.k, p.grouping, p.component_gadgets, gt, torch.cuda.current_device())
     if key not in _slots:
         (mbl, mlv), (bl, lv) = p.component_gadgets[0], p.component_gadgets[-1]
         kk = mb_server_key(dsk)
         out, smem = ctypes.c_int(0), ctypes.c_int(0)
-        rc = build.entry("blind_rotate_mb", _SLOT_ARGTYPES, "helm_blind_rotate_mb_clusters")(
+        symbol = f"helm_{kernel}_clusters"
+        rc = build.entry(kernel, _SLOT_ARGTYPES, symbol)(
             kk.consts, p.n, p.N, p.k, p.grouping, mbl, mlv, bl, lv, gt, kk.chunk,
             kk.bsk_k1.element_size(), ctypes.byref(out), ctypes.byref(smem),
         )
-        build.check(rc, "helm_blind_rotate_mb_clusters")
+        build.check(rc, symbol)
         if smem.value != smem_bytes(p, gt, kk.chunk):
             raise RuntimeError(
-                f"{p.name}: K1 takes {smem.value} B of shared memory for {gt} gates, "
+                f"{p.name}: {kernel} takes {smem.value} B of shared memory for {gt} gates, "
                 f"mb_pbs.smem_bytes says {smem_bytes(p, gt, kk.chunk)}"
             )
         _slots[key] = out.value
@@ -229,12 +244,13 @@ def cluster_slots(dsk: pbs.DeviceServerKey, gt: int) -> int:
 
 
 def tiled_bsk(bsk_ntt: torch.Tensor, p, chunk: int, narrow: bool) -> torch.Tensor:
-    """K1's BSK layout: [n/g, 2^g-1, rows, k+1, NP, N] ->
+    """The BSK layout of K1, K6 and K2: [n/g, 2^g-1, rows, k+1, NP, N]
+    (a grouping-1 BSK [n, rows, k+1, NP, N] is that at g = 1) ->
     [n/g, NP, N/chunk, 2^g-1, rows, k+1, chunk], so that each block (one
-    prime) streams one contiguous chunk of its group's slab at a time; as
+    prime) streams one contiguous chunk of its step's slab at a time; as
     i16 when `narrow` (every residue < 2^15), else i32."""
-    g1, nv1, rows, kp1, np_, N = bsk_ntt.shape
-    t = bsk_ntt.reshape(g1, nv1, rows, kp1, np_, N // chunk, chunk)
+    t = bsk_ntt.reshape(p.n // p.grouping, (1 << p.grouping) - 1, p.gadget_rows, p.k + 1,
+                        NUM_PRIMES, p.N // chunk, chunk)
     t = t.permute(0, 4, 5, 1, 2, 3, 6).contiguous()
     return t.to(torch.int16) if narrow else t.to(torch.int32)
 
@@ -243,17 +259,17 @@ def tiled_bsk(bsk_ntt: torch.Tensor, p, chunk: int, narrow: bool) -> torch.Tenso
 class MbKernelKey:
     """The kernels' view of one server key, derived once per key.
 
-    K2, K3, K4 and K6 read the NTT-domain BSK as u32 words in its natural
-    [n/g, 2^g-1, rows, k+1, NP, N] order (`bsk`), the twiddles, the power
-    table and the constants. K1 reads `bsk_k1` (`tiled_bsk`: chunked per
-    group and prime, i16 where every product sum fits u32; a second copy
-    of the BSK on the device, half or all of `bsk`'s bytes), `twf` / `twi`
+    K3 reads the NTT-domain BSK as u32 words in its natural
+    [n/g, 2^g-1, rows, k+1, NP, N] order (`bsk`, the device key's own
+    tensor: no copy); the kernels read the twiddles, the power table and
+    the constants. K1, K6 and K2 read `bsk_k1` (`tiled_bsk`), `twf` / `twi`
     (the twiddles and their Shoup companions as pairs [NP, N, 2] in
     register-pass order, `twiddles_by_pass`) and `swizzle`
-    (`bank_swizzle`); those are None for grouping-1 keys. The Shoup
-    companion of the BSK is dropped (the kernels reduce with a Barrett
-    constant per prime)."""
+    (`bank_swizzle`); K4 its own layout (`ts_pbs.ts_server_key`). The
+    Shoup companion of the BSK is dropped (the kernels reduce with a
+    Barrett constant per prime)."""
 
+    params: TfheParams
     bsk: torch.Tensor  # i32 bit patterns
     psi: torch.Tensor  # i32 [NP, N] each
     psi_sh: torch.Tensor
@@ -262,11 +278,18 @@ class MbKernelKey:
     pw: torch.Tensor  # i32 [NP, 2N]
     ef: torch.Tensor  # i32 [N]
     consts: ctypes.Array  # u32 [26]
-    bsk_k1: torch.Tensor | None = None
-    twf: torch.Tensor | None = None  # i32 [NP, N, 2]
-    twi: torch.Tensor | None = None
-    swizzle: torch.Tensor | None = None  # u8 [N]
-    chunk: int = 0
+    twf: torch.Tensor  # i32 [NP, N, 2]
+    twi: torch.Tensor
+    swizzle: torch.Tensor  # u8 [N]
+    chunk: int
+
+    @functools.cached_property
+    def bsk_k1(self) -> torch.Tensor:
+        """The BSK chunked per step and prime (`tiled_bsk`), i16 where every
+        product sum fits u32: a second copy of the BSK on the device, half
+        or all of `bsk`'s bytes. Built on first use, so only a key whose
+        kernel reads it (K1, K6, K2) holds it."""
+        return tiled_bsk(self.bsk, self.params, self.chunk, _narrow(self.params))
 
 
 _layouts: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -298,22 +321,13 @@ def mb_server_key(dsk: pbs.DeviceServerKey) -> MbKernelKey:
         + [int(x) for x in tab.n_inv_sh]
         + [int(x) for x in garner]
     )
-    k1 = {}
-    if p.grouping > 1:
-        chunk = chunk_freqs(p)
 
-        def pairs(w, w_sh, inverse):
-            return i32(np.stack([twiddles_by_pass(w, tab.N, inverse),
-                                 twiddles_by_pass(w_sh, tab.N, inverse)], axis=-1))
+    def pairs(w, w_sh, inverse):
+        return i32(np.stack([twiddles_by_pass(w, tab.N, inverse),
+                             twiddles_by_pass(w_sh, tab.N, inverse)], axis=-1))
 
-        k1 = dict(
-            bsk_k1=tiled_bsk(dsk.bsk_ntt, p, chunk, _narrow(p)),
-            twf=pairs(tab.psi_rev, tab.psi_rev_sh, False),
-            twi=pairs(tab.psi_inv_rev, tab.psi_inv_rev_sh, True),
-            swizzle=torch.from_numpy(bank_swizzle(tab.N)).to(dev),
-            chunk=chunk,
-        )
     key = MbKernelKey(
+        params=p,
         bsk=dsk.bsk_ntt.contiguous(),
         psi=i32(tab.psi_rev),
         psi_sh=i32(tab.psi_rev_sh),
@@ -322,7 +336,10 @@ def mb_server_key(dsk: pbs.DeviceServerKey) -> MbKernelKey:
         pw=pw.to(torch.int32).contiguous(),
         ef=ef.to(torch.int32).contiguous(),
         consts=(ctypes.c_uint32 * len(vals))(*vals),
-        **k1,
+        twf=pairs(tab.psi_rev, tab.psi_rev_sh, False),
+        twi=pairs(tab.psi_inv_rev, tab.psi_inv_rev_sh, True),
+        swizzle=torch.from_numpy(bank_swizzle(tab.N)).to(dev),
+        chunk=chunk_freqs(p),
     )
     _layouts[dsk] = key
     return key
@@ -349,6 +366,43 @@ def check_inputs(dsk: pbs.DeviceServerKey, lwe_in, testv, what: str) -> None:
         )
 
 
+def check_build(p, builds, what: str) -> None:
+    """Raise unless `builds` (K1_BUILDS, K2_BUILDS) holds p's (grouping,
+    gadget rows): the kernel file has no template build for another."""
+    if (p.grouping, p.gadget_rows) not in builds:
+        raise ValueError(
+            f"{p.name}: {what} has no build for grouping {p.grouping} with {p.gadget_rows} gadget rows"
+        )
+
+
+def rotate_tiles(kernel: str, dsk: pbs.DeviceServerKey, lwe_in: torch.Tensor, testv: torch.Tensor,
+                 extra=()) -> torch.Tensor:
+    """One launch of csrc/<kernel>.cu (K1 blind_rotate_mb, K6
+    blind_rotate_ps or K2 blind_rotate_sb: the body of rotate_tiles.cuh
+    with the kernel's word source and epilogue) on CUDA tensors checked by
+    the caller, with the tile plan `plan_for` picks; `extra`: the kernel's
+    own constants as (ctypes type, value) pairs, passed after the Garner
+    constants. Returns the [G, k+1, N] words."""
+    p = dsk.params
+    n, N, k = p.n, p.N, p.k
+    G = lwe_in.shape[0]
+    key = mb_server_key(dsk)
+    plan = plan_for(dsk, G, kernel)
+    acc = to_i32_bits(pbs.initial_acc(p, lwe_in, testv)).contiguous()
+    abar = ops.mod_switch(lwe_in[:, :n], N).to(torch.int32).contiguous()
+    (mbl, mlv), (bl, lv) = p.component_gadgets[0], p.component_gadgets[-1]
+    argtypes = _ARGTYPES[:8] + [t for t, _ in extra] + _ARGTYPES[8:]
+    rc = build.entry(kernel, argtypes)(
+        acc.data_ptr(), abar.data_ptr(), key.bsk_k1.data_ptr(),
+        key.twf.data_ptr(), key.twi.data_ptr(), key.pw.data_ptr(),
+        key.swizzle.data_ptr(), key.consts, *(v for _, v in extra),
+        G, n, N, k, p.grouping, mbl, mlv, bl, lv, plan.gt, plan.chunk, key.bsk_k1.element_size(),
+        torch.cuda.current_stream(lwe_in.device).cuda_stream,
+    )
+    build.check(rc, f"helm_{kernel}")
+    return from_i32_bits(acc)
+
+
 def blind_rotate_mb(
     dsk: pbs.DeviceServerKey, lwe_in: torch.Tensor, testv: torch.Tensor
 ) -> torch.Tensor:
@@ -367,27 +421,10 @@ def blind_rotate_mb(
     if lwe_in.device.type != "cuda":
         raise NotImplementedError(f"blind_rotate_mb: no kernel for {lwe_in.device}")
     check_inputs(dsk, lwe_in, testv, "blind_rotate_mb")
-    if (p.grouping, p.gadget_rows) not in K1_BUILDS:
-        raise ValueError(
-            f"{p.name}: K1 has no build for grouping {p.grouping} with {p.gadget_rows} gadget rows"
-        )
-    n, N, k = p.n, p.N, p.k
-    G = lwe_in.shape[0]
-    key = mb_server_key(dsk)
-    plan = plan_for(dsk, G)
-    acc = to_i32_bits(pbs.initial_acc(p, lwe_in, testv)).contiguous()
-    abar = ops.mod_switch(lwe_in[:, :n], N).to(torch.int32).contiguous()
-    (mbl, mlv), (bl, lv) = p.component_gadgets[0], p.component_gadgets[-1]
-    rc = build.entry("blind_rotate_mb", _ARGTYPES)(
-        acc.data_ptr(), abar.data_ptr(), key.bsk_k1.data_ptr(),
-        key.twf.data_ptr(), key.twi.data_ptr(), key.pw.data_ptr(),
-        key.swizzle.data_ptr(), key.consts,
-        G, n, N, k, p.grouping, mbl, mlv, bl, lv, plan.gt, plan.chunk, key.bsk_k1.element_size(),
-        torch.cuda.current_stream(lwe_in.device).cuda_stream,
-    )
-    build.check(rc, "helm_blind_rotate_mb")
+    check_build(p, K1_BUILDS, "K1")
+    out = rotate_tiles("blind_rotate_mb", dsk, lwe_in, testv)
     blind_rotate_mb.launches += 1
-    return from_i32_bits(acc)
+    return out
 
 
 blind_rotate_mb.launches = 0
@@ -438,19 +475,17 @@ def blind_rotation(params):
 
 
 def kernel_layouts(dsk: pbs.DeviceServerKey) -> None:
-    """Build the key layouts the selected kernels read (K1's and K2's
-    `mb_server_key`; K6's `ps_server_key` too when "ps" is selected, K4's
-    `ts_server_key` when "ts" is), so that an engine pays for them once,
-    up front."""
-    mb_server_key(dsk)
-    if dsk.params.grouping > 1 and mb_kernel() == "ps":
-        from .ps_pbs import ps_server_key
-
-        ps_server_key(dsk)
+    """Build the key layouts the selected kernel reads (`mb_server_key`'s
+    tables for every kernel; its chunked `bsk_k1` for K1, K6 and K2, but
+    not under "ts"; K4's `ts_server_key` under "ts"), so that an engine
+    pays for them once, up front."""
+    key = mb_server_key(dsk)
     if dsk.params.grouping > 1 and mb_kernel() == "ts":
         from .ts_pbs import ts_server_key
 
         ts_server_key(dsk)
+    else:
+        key.bsk_k1  # built here, on first access, and cached
 
 
 def bootstrap(

@@ -1,8 +1,9 @@
 """Where K1's time goes inside one rotation, by phase, on the card.
 
-Builds an instrumented copy of `csrc/blind_rotate_mb.cu` (clock64() read
-by thread 0 of block (0, 0) at each barrier of the group loop; the kernel
-itself is unchanged) into `build/k1_phases/`, runs one rotation per width
+Builds an instrumented copy of `csrc/blind_rotate_mb.cu`, with the kernel
+body it includes (`csrc/rotate_tiles.cuh`) inlined and clock64() read by
+thread 0 of block (0, 0) at each barrier of the group loop (the kernel
+itself is unchanged), into `build/k1_phases/`, runs one rotation per width
 through `mb_pbs.blind_rotate_mb` with that build, and prints each phase's
 share of the clocks per group:
 
@@ -43,7 +44,7 @@ PHASES = ("decompose+pass1", "fwd passes", "products", "inv passes", "cluster sy
 #: (set, widths) the tool runs
 WIDTHS = (("GATES_128_K3", (8, 64, 1024)), ("LUT_128_K2", (2, 256)), ("ARITH_128_MB2", (8, 1024)))
 
-#: (anchor in the kernel source, text inserted after it); counters 0-6
+#: (anchor in the kernel body, text inserted after it); counters 0-6
 #: are the phases, 9 the ring waits, 10 thread 0's products, 11 its chunk
 #: barrier waits
 _MARKS = (
@@ -74,9 +75,9 @@ _BEFORE = (
 
 
 def instrumented_source() -> str:
-    """The kernel source with the phase counters in; raises if an anchor
-    has gone from the source."""
-    src = (build.CSRC / "blind_rotate_mb.cu").read_text()
+    """K1's source with the kernel body inlined and the phase counters in
+    it; raises if an anchor has gone from the body."""
+    src = (build.CSRC / "rotate_tiles.cuh").read_text().replace("#pragma once\n", "")
     for anchor, text in _MARKS:
         if src.count(anchor) != 1:
             raise RuntimeError(f"k1_phases: anchor not found once: {anchor!r}")
@@ -86,7 +87,11 @@ def instrumented_source() -> str:
             raise RuntimeError(f"k1_phases: anchor not found once: {anchor!r}")
         src = src.replace(anchor, text + anchor)
     src = src.replace("namespace {\n", "__device__ unsigned long long k1_clk[16];\nnamespace {\n", 1)
-    return src + (
+    k1 = (build.CSRC / "blind_rotate_mb.cu").read_text()
+    include = '#include "rotate_tiles.cuh"\n'
+    if k1.count(include) != 1:
+        raise RuntimeError(f"k1_phases: {include!r} not found once in blind_rotate_mb.cu")
+    return k1.replace(include, src) + (
         '\nextern "C" int helm_k1_clocks(unsigned long long* out, int reset) {\n'
         "  unsigned long long z[16] = {0};\n"
         "  return (int)(reset ? cudaMemcpyToSymbol(k1_clk, z, sizeof(z))\n"

@@ -1,0 +1,120 @@
+"""A/B of the tile kernels (K1, K6, K2) between two checkouts, on the card.
+
+    python3 helm_tpu_torch/tools/kernel_ab.py time <checkout> <label> [k1,k6,k2]
+    python3 helm_tpu_torch/tools/kernel_ab.py sass <checkout A> <checkout B> <out dir>
+
+`time` imports the port and `chip_smoke.py` from <checkout>, builds its
+three tile kernels there, and times each wrapper by CUDA events (one
+untimed call, then the mean of three) at the full-size sets and widths of
+chip_smoke.py's phases k1, k6 and k2, on the same inputs (no plain
+versions). It prints one JSON line per width with a digest of the output
+words, so that two checkouts' words can be compared. Run it once per
+checkout, each in its own process, in turns (A, B, B, A) in one call.
+
+`sass` compiles K1 (`csrc/blind_rotate_mb.cu`) of both checkouts to
+cubins with nvcc, writes their `cuobjdump -sass` into <out dir>, and
+compares the machine code of each rotate_tiles instantiation, matched by
+(grouping, rows, narrow), instruction by instruction (the encodings and
+addresses aside). Needs nvcc (under /usr/local/cuda) and, for `time`, a
+card.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+CUDA_BIN = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin")
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+
+
+def time_checkout(root: str, label: str, only) -> None:
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import numpy as np
+
+    import chip_smoke as cs
+    from helm_tpu_torch import params as P
+    from helm_tpu_torch.fhe import pbs
+    from helm_tpu_torch.fhe.ntt import words
+    from helm_tpu_torch.ops import build, mb_pbs, ps_pbs, sb_pbs
+
+    t0 = time.perf_counter()
+    build.load_all(["blind_rotate_mb", "blind_rotate_ps", "blind_rotate_sb"])
+    print(f"[{label}] built in {time.perf_counter() - t0:.1f} s", flush=True)
+    smoke = cs.Smoke("cuda")
+    multibit = ((P.GATES_128_K3, 2024, (8, 16, 32, 37, 64, 128, 200, 256, 1024), False),
+                (P.LUT_128_K2, 2025, (2, 256), True), (P.ARITH_128_MB2, 2030, (8, 1024), True))
+    single = ((P.GATES_TPU, 2026, (1, 2, 4, 8, 16, 32, 37, 64, 128, 256, 1024), False),
+              (P.GATES_PARAMS, 2027, (37,), False), (P.LUT_PARAMS, 2028, (2, 37), True))
+    runs = (("k1", mb_pbs.blind_rotate_mb, multibit), ("k6", ps_pbs.blind_rotate_ps, multibit),
+            ("k2", sb_pbs.blind_rotate_sb, single))
+    for kname, fn, cases in runs:
+        if kname not in only:
+            continue
+        for params, seed, gs, per_gate in cases:
+            ck, _, dsk = smoke.keys_for(params, seed)
+            for G in gs:
+                lin, _ = cs._ands(ck, G, 100 + G)  # chip_smoke's inputs for this width
+                x = words(lin, "cuda")
+                if per_gate:
+                    rng = np.random.default_rng(G)
+                    tv = words(rng.integers(0, 1 << 32, size=(G, params.N), dtype=np.uint64)
+                               .astype(np.uint32), "cuda")
+                else:
+                    tv = words(pbs.gates_test_poly(params), "cuda")
+                ms, out = cs._time_ms(lambda: fn(dsk, x, tv), reps=3)
+                digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+                print(json.dumps({"tree": label, "kernel": kname, "set": params.name, "G": G,
+                                  "ms": ms, "digest": digest}), flush=True)
+    print(f"[{label}] done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def k1_sass(root: str, out_dir: str, tag: str) -> dict:
+    """{(grouping, rows, narrow): [instruction, ...]} of K1 in `root`."""
+    cubin = os.path.join(out_dir, f"k1_{tag}.cubin")
+    cu = os.path.join(root, "helm_tpu_torch", "csrc", "blind_rotate_mb.cu")
+    subprocess.run([os.path.join(CUDA_BIN, "nvcc"), *FLAGS, "-cubin", "-o", cubin, cu], check=True)
+    text = subprocess.run([os.path.join(CUDA_BIN, "cuobjdump"), "-sass", cubin], check=True,
+                          capture_output=True, text=True).stdout
+    with open(os.path.join(out_dir, f"k1_{tag}.sass"), "w") as f:
+        f.write(text)
+    funcs = {}
+    for part in text.split("Function : ")[1:]:
+        m = re.search(r"rotate_tilesILi(\d+)ELi(\d+)ELb([01])", part.split("\n", 1)[0])
+        if m:
+            funcs[m.groups()] = [re.sub(r"\s+", " ", i.group(1)) for i in
+                                 re.finditer(r"^\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", part, re.M)]
+    return funcs
+
+
+def compare_sass(a_root: str, b_root: str, out_dir: str) -> bool:
+    os.makedirs(out_dir, exist_ok=True)
+    a, b = k1_sass(a_root, out_dir, "a"), k1_sass(b_root, out_dir, "b")
+    same = bool(a) and set(a) == set(b)
+    for key in sorted(set(a) | set(b)):
+        x, y = a.get(key, []), b.get(key, [])
+        diff = sum(i != j for i, j in zip(x, y)) + abs(len(x) - len(y))
+        print(f"rotate_tiles<{', '.join(key)}>: {len(x)} / {len(y)} instructions, {diff} differ")
+        same &= diff == 0
+    print("K1 SASS IDENTICAL" if same else "K1 SASS DIFFERS")
+    return same
+
+
+def main(argv) -> int:
+    if len(argv) >= 3 and argv[0] == "time":
+        time_checkout(os.path.abspath(argv[1]), argv[2], (argv[3] if len(argv) > 3 else "k1,k6,k2").split(","))
+        return 0
+    if len(argv) == 4 and argv[0] == "sass":
+        return 0 if compare_sass(*argv[1:]) else 1
+    print(__doc__, file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))

@@ -64,6 +64,14 @@ def test_cli_sequential_and_keys_dir(tmp_path):
         assert _read(out) == _read("benchmarks/test-cases/s27_3cycles.outputs.csv")
 
 
+@pytest.mark.parametrize("flag", ["-g", "--gpu", "--tpu"])
+def test_cli_accepts_the_reference_device_flags(flag):
+    """-g, --gpu and --tpu parse as no-ops, as in helm_tpu/cli.py, and leave
+    the device at its default, the card."""
+    args = cli.build_argparser().parse_args(["-v", "x.v", flag])
+    assert args.tpu and args.device == "cuda"
+
+
 def test_cli_missing_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):

@@ -1,23 +1,30 @@
-"""K1's host-side plan and layouts, and a plain model of its order of
-operations, against helm_tpu_torch's plain version and helm_tpu.
+"""The host-side plan and layouts of K1, K6 and K2 (one kernel body,
+`csrc/rotate_tiles.cuh`), and a plain model of the body's order of
+operations, against helm_tpu_torch's plain versions and helm_tpu.
 
-The CUDA kernel (`csrc/blind_rotate_mb.cu`) cannot run here; what it
-reads can:
+The CUDA kernels (`csrc/blind_rotate_{mb,ps,sb}.cu`) cannot run here;
+what they read can:
 - `mb_pbs.tile_plan`: every tile fits the shared memory a block may take
   and the tiles cover every gate exactly once, at the sets and widths the
-  kernel runs, and `cluster_slots` holds it to the kernel's own layout;
-- `mb_pbs.tiled_bsk`: the chunked BSK layout inverts to `dsk.bsk_ntt`;
+  kernels run (multi-bit sets for K1 and K6, grouping-1 sets for K2), and
+  `cluster_slots` holds it to the kernel's own layout;
+- `mb_pbs.tiled_bsk`: the chunked BSK layout inverts to `dsk.bsk_ntt`, at
+  grouping 1 too; `kernel_layouts` builds it only for a kernel that reads
+  it;
 - `mb_pbs.twiddles_by_pass` and `pass_stages`: the register-pass NTTs,
   written here with the kernel's index formulas, equal `ntt.ntt_fwd` /
   `ntt.ntt_inv`;
 - `mb_pbs.bank_swizzle`: a permutation of every row, and from N = 256 on
   no register pass or run of 32 consecutive words meets a bank twice;
-- `_model`: the kernel's order of operations in plain torch (tile by tile,
-  prime by prime: the decomposition, the pass NTTs, sum_r F_r BSK_v[r, c]
-  before the P_v scale from the chunked layout in u32 where `fits_u32`
-  holds, the inverse passes, Garner per coefficient quarter) equals
-  `pbs.blind_rotate_multibit` and `pbs_jnp.blind_rotate_multibit` word
-  for word.
+- `_model`: the body's order of operations in plain torch (tile by tile,
+  prime by prime: the decomposition of the word source's words, the pass
+  NTTs, the products from the chunked layout in u32 where `fits_u32`
+  holds, the inverse passes, the epilogue per coefficient quarter). With
+  the bare accumulator and Garner (K1) and with the CRT fold (K6) it
+  equals `pbs.blind_rotate_multibit`, `pbs.blind_rotate_prime_split` and
+  `pbs_jnp.blind_rotate_multibit`; with the rotated difference at
+  grouping 1 (K2) it equals `pbs.blind_rotate` and `pbs_jnp.blind_rotate`,
+  word for word.
 """
 
 import dataclasses
@@ -38,13 +45,21 @@ from helm_tpu_torch.fhe.ntt import to_host, words
 from helm_tpu_torch.fhe.server_key import server_key_from_reference
 from helm_tpu_torch.ops import mb_pbs
 
-SETS = {"k3": (RP.TEST_PARAMS_K3, 51), "mb4": (RP.TEST_PARAMS_MB4, 52)}
+#: the tiny k=3 grouping-1 set of chip_smoke.py's phase k2
+RK3_G1 = dataclasses.replace(RP.TEST_PARAMS_K3, name="test_tiny_k3_g1", grouping=1)
+SETS = {
+    "k3": (RP.TEST_PARAMS_K3, 51), "mb4": (RP.TEST_PARAMS_MB4, 52),
+    "g1": (RP.TEST_PARAMS, 53), "lut": (RP.TEST_PARAMS_LUT, 54), "k3_g1": (RK3_G1, 55),
+}
 
-#: the sets K1 runs (phase k1 of chip_smoke.py)
+#: the sets K1 and K6 run (phases k1 and k6 of chip_smoke.py), and those K2
+#: runs (phase k2)
 PLAN_SETS = [
     P.GATES_128_K3, P.LUT_128_K2, P.ARITH_128_MB2, P.TEST_PARAMS_K3, P.TEST_PARAMS_MB4,
     dataclasses.replace(P.TEST_PARAMS_K3, name="test_tiny_k3_n1024", N=1024),
     dataclasses.replace(P.TEST_PARAMS_MB, name="test_tiny_mb2_n2048", N=2048),
+    P.GATES_TPU, P.GATES_PARAMS, P.LUT_PARAMS, P.ARITH_PARAMS, P.TEST_PARAMS, P.TEST_PARAMS_LUT,
+    dataclasses.replace(P.TEST_PARAMS_K3, name="test_tiny_k3_g1", grouping=1),
 ]
 
 
@@ -101,14 +116,17 @@ def _untiled(t):
     return t.to(torch.int32).permute(0, 3, 4, 5, 1, 2, 6).reshape(g1, nv1, rows, kp1, np_, nch * chunk)
 
 
-@pytest.mark.parametrize("name", ["k3", "mb4"])
+@pytest.mark.parametrize("name", ["k3", "mb4", "g1", "lut", "k3_g1"])
 def test_tiled_bsk_inverts(keys, name):
+    """At grouping 1 the BSK [n, rows, k+1, NP, N] is the multi-bit layout
+    at g = 1: one subset per step."""
     _, _, dsk = keys[name]
     key = mb_pbs.mb_server_key(dsk)
     p = dsk.params
     assert key.bsk_k1.dtype == (torch.int16 if mb_pbs._narrow(p) else torch.int32)
     assert key.chunk == mb_pbs.chunk_freqs(p)
-    assert torch.equal(_untiled(key.bsk_k1), dsk.bsk_ntt.to(torch.int32))
+    want = dsk.bsk_ntt.reshape((p.n // p.grouping, (1 << p.grouping) - 1) + tuple(dsk.bsk_ntt.shape[-4:]))
+    assert torch.equal(_untiled(key.bsk_k1), want.to(torch.int32))
 
 
 def _pass_ntt(x, tw, p, N, inverse):
@@ -204,17 +222,56 @@ def test_bank_swizzle_is_conflict_free(N):
         assert (np.diff(banks, axis=1) > 0).all(), f"a bank conflict at N={N}"
 
 
-def _model(dsk, lwe_in, testv):
-    """K1's order of operations in plain torch: per tile of `tile_plan`,
-    per group, per prime (the cluster's blocks) the decomposition of the
-    tile's accumulators, the forward pass NTTs, the products from the
-    chunked BSK (sum over rows first, in u32 where fits_u32 holds, then the
-    P_v scale), the inverse passes; then Garner per coefficient quarter."""
+def _acc_words(acc, a, N):
+    """AccQuarter's words: the bare accumulator [ng, kp1, N]."""
+    return acc
+
+
+def _rotdiff_words(acc, a, N):
+    """RotDiffQuarter's words, with the kernel's index formula: word x of
+    X^a acc - acc is acc[y] for y = (x - a) mod 2N, negated when y >= N
+    (then acc[y - N]), minus acc[x]; a: the gates' mask elements [ng]."""
+    y = (torch.arange(N)[None, :] - a[:, None]) & (2 * N - 1)  # [ng, N]
+    neg = (y >= N)[:, None, :]
+    rot = torch.gather(acc, 2, (y & (N - 1))[:, None, :].expand_as(acc))
+    rot = torch.where(neg, (0 - rot) & ntt.M32, rot)
+    return (rot - acc) & ntt.M32
+
+
+def _garner(r4, tab):
+    """Garner's epilogue on [.., NP, N/4] scaled residues."""
+    return ntt.garner_to_u32(r4, tab)
+
+
+def _crt_fold(r4, tab):
+    """CrtFold's epilogue, in the kernel's arithmetic: the u32 wrapping sum
+    of r_i W_i, s = sum_i r_i (W_i / P) in double precision in prime order,
+    kq = floor(s + 0.5), sum - kq P mod 2^32."""
+    c = ntt.crt_constants(tab.N)
+    total = torch.zeros_like(r4[..., 0, :])
+    s = torch.zeros(r4[..., 0, :].shape, dtype=torch.float64)
+    for i in range(len(c.w_mod)):
+        total = (total + r4[..., i, :] * c.w_mod[i]) & ntt.M32
+        s = s + r4[..., i, :].to(torch.float64) * c.frac[i]
+    kq = torch.floor(s + 0.5).to(torch.int64)
+    return (total - kq * c.prod_mod) & ntt.M32
+
+
+def _model(dsk, lwe_in, testv, words=_acc_words, fold=_garner):
+    """The kernel body's order of operations in plain torch: per tile of
+    `tile_plan`, per step, per prime (the cluster's blocks) the
+    decomposition of the tile's `words` (`_acc_words`: K1, K6;
+    `_rotdiff_words`: K2), the forward pass NTTs, the products from the
+    chunked BSK (sum over rows first, in u32 where fits_u32 holds, then
+    the P_v scale where the words are the bare accumulator), the inverse
+    passes; then the epilogue `fold` (`_garner`: K1, K2; `_crt_fold`: K6)
+    per coefficient quarter."""
     p = dsk.params
     key = mb_pbs.mb_server_key(dsk)
     tab = dsk.tab
     N, k, g, n = p.N, p.k, p.grouping, p.n
     kp1, rows, nv1 = k + 1, p.gadget_rows, (1 << g) - 1
+    subsets = words is _acc_words
     G = lwe_in.shape[0]
     plan = mb_pbs.tile_plan(p, G, h100_slots)
     primes = [int(x) for x in tab.primes]
@@ -230,6 +287,7 @@ def _model(dsk, lwe_in, testv):
         g0, g1 = t * plan.gt, min(G, (t + 1) * plan.gt)
         acc = acc_all[g0:g1].clone()  # [ng, kp1, N]
         for j in range(n // g):
+            src = words(acc, abar[g0:g1, j], N)
             res = []
             for pi, q in enumerate(primes):
                 # decomposition (fhe/ops.py signed_decompose), rows [rows, ng, N]
@@ -237,7 +295,7 @@ def _model(dsk, lwe_in, testv):
                 for c, (bl, lv) in enumerate(p.component_gadgets):
                     row0 = c * p.component_gadgets[0][1]
                     total = bl * lv
-                    r = (((acc[:, c] >> (32 - total - 1)) + 1) >> 1) & ((1 << total) - 1)
+                    r = (((src[:, c] >> (32 - total - 1)) + 1) >> 1) & ((1 << total) - 1)
                     for lvl in range(lv - 1, -1, -1):
                         d = r & ((1 << bl) - 1)
                         carry = (d >= (1 << (bl - 1))).to(torch.int64)
@@ -261,7 +319,8 @@ def _model(dsk, lwe_in, testv):
                             tv = (f[:, :, fs] * b[v, :, c, None, :]).sum(dim=0)  # [ng, cf]
                             if narrow:
                                 assert int(tv.max()) < 1 << 32
-                            acc_s = acc_s + pv[v + 1] * (tv % q)
+                            # K2 (no subsets): one product per row, reduced once
+                            acc_s = acc_s + (pv[v + 1] * (tv % q) if subsets else tv)
                         if narrow:
                             assert int(acc_s.max()) < 1 << 32
                         s[c, :, fs] = acc_s % q
@@ -270,7 +329,7 @@ def _model(dsk, lwe_in, testv):
             r4 = torch.stack(res, dim=-2)  # [kp1, ng, NP, N]
             for quarter in range(4):  # block `quarter` folds its coefficients
                 cs = slice(quarter * N // 4, (quarter + 1) * N // 4)
-                folded = ntt.garner_to_u32(r4[..., cs], tab)  # [kp1, ng, N/4]
+                folded = fold(r4[..., cs], tab)  # [kp1, ng, N/4]
                 acc[:, :, cs] = (acc[:, :, cs] + folded.permute(1, 0, 2)) & ntt.M32
         out[g0:g1] = acc
     return out
@@ -304,19 +363,63 @@ def test_model_matches_plain_and_jnp(keys, name, G, per_gate, jnp_too):
         np.testing.assert_array_equal(to_host(got), ref)
 
 
-@pytest.mark.parametrize("name", ["k3", "mb4"])
+@pytest.mark.parametrize("fold,name,G,per_gate,jnp_too", [
+    ("crt", "k3", 5, True, True), ("crt", "mb4", 5, False, True), ("garner", "mb4", 3, True, False),
+])
+def test_fold_model_matches_prime_split_multibit_and_jnp(keys, fold, name, G, per_gate, jnp_too):
+    """K6's order of operations (K1's, with the CRT fold per coefficient
+    quarter) equals `pbs.blind_rotate_prime_split`, `pbs.blind_rotate_multibit`
+    and helm_tpu's jnp rotation; and with Garner, K1's, at per-gate test
+    polynomials at the grouping-4 set."""
+    ck, jdsk, tdsk = keys[name]
+    x, tv = _inputs(ck, G, 300 + G, per_gate)
+    got = _model(tdsk, words(x), words(tv), fold=_crt_fold if fold == "crt" else _garner)
+    assert torch.equal(got, pbs.blind_rotate_prime_split(tdsk, words(x), words(tv)))
+    assert torch.equal(got, pbs.blind_rotate_multibit(tdsk, words(x), words(tv)))
+    if jnp_too:
+        ref = np.asarray(pbs_jnp.blind_rotate_multibit(jdsk, jnp.asarray(x), jnp.asarray(tv)))
+        np.testing.assert_array_equal(to_host(got), ref)
+
+
+@pytest.mark.parametrize("name,G,per_gate,jnp_too", [
+    ("g1", 5, False, True), ("g1", 37, True, False), ("lut", 5, True, True), ("k3_g1", 5, False, True),
+])
+def test_rotdiff_model_matches_blind_rotate_and_jnp(keys, name, G, per_gate, jnp_too):
+    """K2's order of operations (the body at grouping 1 decomposing X^a acc -
+    acc, one product per gadget row, Garner) equals `pbs.blind_rotate` and
+    helm_tpu's jnp single-bit rotation (`pbs_jnp.blind_rotate`), at
+    TEST_PARAMS (one tile and several), TEST_PARAMS_LUT with per-gate test
+    polynomials and the k=3 grouping-1 set (the jnp rotation at one width
+    each: each new width would cost it a compilation); and K1's order of
+    operations (the bare accumulator, P_v after the products) computes
+    other words there."""
+    ck, jdsk, tdsk = keys[name]
+    x, tv = _inputs(ck, G, 400 + G, per_gate)
+    got = _model(tdsk, words(x), words(tv), words=_rotdiff_words)
+    assert torch.equal(got, pbs.blind_rotate(tdsk, words(x), words(tv)))
+    if jnp_too:
+        ref = np.asarray(pbs_jnp.blind_rotate(jdsk, jnp.asarray(x), jnp.asarray(tv)))
+        np.testing.assert_array_equal(to_host(got), ref)
+    if name == "g1" and G == 5:
+        assert not torch.equal(_model(tdsk, words(x), words(tv)), got)
+
+
+@pytest.mark.parametrize("name", ["k3", "mb4", "g1"])
 @pytest.mark.parametrize("off", [0, 16])
 def test_cluster_slots_holds_the_plan_to_the_kernel(keys, monkeypatch, name, off):
-    """`cluster_slots` passes the kernel the BSK's element size (the kernel
-    refuses one that its sums do not call for) and raises unless the
-    kernel's shared memory for the tile is `smem_bytes`'s; the C entry
-    point is stood in for here, with `off` bytes more than the plan."""
+    """`cluster_slots` asks the kernel that will launch (K1 for multi-bit
+    keys by default, K2 at grouping 1) and passes it the BSK's element size
+    (the kernel refuses one that its sums do not call for), and raises
+    unless the kernel's shared memory for the tile is `smem_bytes`'s; the
+    C entry point is stood in for here, with `off` bytes more than the
+    plan."""
     _, _, dsk = keys[name]
     p, key = dsk.params, mb_pbs.mb_server_key(dsk)
+    kernel = "blind_rotate_sb" if p.grouping == 1 else "blind_rotate_mb"
     seen = []
 
     def entry(name_, argtypes, symbol=None):
-        assert (name_, symbol) == ("blind_rotate_mb", "helm_blind_rotate_mb_clusters")
+        assert (name_, symbol) == (kernel, f"helm_{kernel}_clusters")
 
         def call(*args):
             seen.append(args[11])
@@ -331,9 +434,9 @@ def test_cluster_slots_holds_the_plan_to_the_kernel(keys, monkeypatch, name, off
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     if off:
         with pytest.raises(RuntimeError, match="smem_bytes"):
-            mb_pbs.cluster_slots(dsk, 1)
+            mb_pbs.cluster_slots(dsk, 1, kernel)
     else:
-        assert mb_pbs.cluster_slots(dsk, 1) == 30
+        assert mb_pbs.cluster_slots(dsk, 1, kernel) == 30
     assert seen == [key.bsk_k1.element_size()] and seen[0] == (2 if mb_pbs._narrow(p) else 4)
 
 
@@ -346,14 +449,47 @@ def test_k1_phases_instruments_the_kernel():
     assert all(f"MARK_({i})" in src for i in range(7)) and "helm_k1_clocks" in src
 
 
-def test_every_multibit_set_has_a_k1_build():
-    """A build per (grouping, rows), and digits |d| <= B/2 below the
-    smallest prime (the kernel's floor-mod adds p once)."""
-    for p in vars(P).values():
-        if isinstance(p, P.TfheParams) and p.grouping > 1:
-            assert (p.grouping, p.gadget_rows) in mb_pbs.K1_BUILDS, p.name
-            for bl, _ in p.component_gadgets:
-                assert 1 << (bl - 1) < min(primes_for(p.N)), p.name
+@pytest.mark.parametrize("single_bit", [False, True], ids=["K1-K6", "K2"])
+def test_every_multibit_set_has_a_k1_build(single_bit):
+    """A build per (grouping, rows): K1 and K6 for every multi-bit set, K2
+    for every grouping-1 set; and digits |d| <= B/2 below the smallest
+    prime (the kernels' floor-mod adds p once)."""
+    builds = mb_pbs.K2_BUILDS if single_bit else mb_pbs.K1_BUILDS
+    sets = [p for p in vars(P).values() if isinstance(p, P.TfheParams) and (p.grouping == 1) == single_bit]
+    assert sets
+    for p in sets:
+        assert (p.grouping, p.gadget_rows) in builds, p.name
+        for bl, _ in p.component_gadgets:
+            assert 1 << (bl - 1) < min(primes_for(p.N)), p.name
+
+
+@pytest.mark.parametrize("builds,what,grouping,rows,change", [
+    ("K1_BUILDS", "K6", 3, 4, dict(n=15)),
+    ("K1_BUILDS", "K1", 2, 5, dict(pbs_mask_base_log=8, pbs_mask_level=3)),
+    ("K2_BUILDS", "K2", 1, 9, dict(k=2, pbs_level=3)),
+])
+def test_check_build_refuses_a_shape_without_a_build(builds, what, grouping, rows, change):
+    """The wrappers refuse, before any launch, a (grouping, rows) their
+    kernel file has no template build for (grouping 3: no set has it)."""
+    p = dataclasses.replace(P.TEST_PARAMS_MB, grouping=grouping, **change)
+    assert p.gadget_rows == rows
+    with pytest.raises(ValueError, match=f"{what} has no build for grouping {grouping} with {rows} gadget rows"):
+        mb_pbs.check_build(p, getattr(mb_pbs, builds), what)
+    mb_pbs.check_build(P.TEST_PARAMS_K3, mb_pbs.K1_BUILDS, what)
+
+
+@pytest.mark.parametrize("name,selected,built", [
+    ("k3", "ts", False), ("k3", "fs", True), ("k3", "ps", True), ("g1", "ts", True),
+])
+def test_kernel_layouts_build_the_chunked_bsk_only_for_its_readers(keys, monkeypatch, name, selected, built):
+    """`kernel_layouts` builds the chunked BSK (`bsk_k1`) where the
+    selection reads it (K1 under fs, K6 under ps, K2 for every grouping-1
+    key) and leaves it unbuilt under ts (K4 reads the natural layout)."""
+    monkeypatch.setenv("HELM_TPU_MB_KERNEL", selected)
+    _, _, dsk = keys[name]
+    dsk = dataclasses.replace(dsk)  # a fresh key: nothing cached
+    mb_pbs.kernel_layouts(dsk)
+    assert ("bsk_k1" in vars(mb_pbs.mb_server_key(dsk))) == built
 
 
 def test_wrapper_refuses_what_the_kernel_cannot_take(keys):
@@ -367,3 +503,27 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(keys):
     big = dataclasses.replace(P.TEST_PARAMS_K3, N=4096)
     with pytest.raises(ValueError, match="shared memory"):
         mb_pbs.tile_plan(big, 8, h100_slots)
+
+
+def test_kernel_ab_compares_k1_sass(tmp_path, monkeypatch):
+    """tools/kernel_ab's `sass` matches K1's instantiations by (grouping,
+    rows, narrow) and counts differing instructions, encodings and
+    addresses aside (nvcc and cuobjdump are stood in for here)."""
+    from helm_tpu_torch.tools import kernel_ab
+
+    def dump(reg):
+        f = "\t\tFunction : _ZN12_GLOBAL__N_112rotate_tilesILi2ELi8ELb1ENS_10AccQuarterENS_6GarnerEEEv\n"
+        return (f + "        /*0000*/   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */\n"
+                f"        /*0010*/   IMAD {reg}, R2, 0x4, R7 ;   /* 0x0000000a00ff017b */\n")
+
+    dumps = {"a": dump("R6"), "b": dump("R6")}
+
+    def run(cmd, **kw):
+        if cmd[0].endswith("cuobjdump"):
+            return type("R", (), {"stdout": dumps[cmd[-1].rsplit("k1_", 1)[1][0]]})
+        return None
+
+    monkeypatch.setattr(kernel_ab.subprocess, "run", run)
+    assert kernel_ab.compare_sass("A", "B", str(tmp_path))
+    dumps["b"] = dump("R9")
+    assert not kernel_ab.compare_sass("A", "B", str(tmp_path))

@@ -11,8 +11,10 @@ helm_tpu_torch, against helm_tpu.
 - `mb_pbs.mb_kernel` against `helm_tpu.ops.ts_pbs.mb_kernel` for every
   value of the environment variables, and the routing of `mb_pbs.bootstrap`
   (K1, K6, and K4 under "ts" and the legacy HELM_TPU_TS_KERNEL=1).
-- `ps_pbs.ps_server_key` as a permutation of the BSK.
+- `ps_pbs.crt_args`: the CRT fold's constants as K6's C entry takes them.
 """
+
+import ctypes
 
 import jax.numpy as jnp
 import numpy as np
@@ -193,20 +195,15 @@ def test_bootstrap_words_under_ps(keys, monkeypatch):
     np.testing.assert_array_equal(to_host(mb_pbs.bootstrap(tdsk, words(x), words(tv))), ref)
 
 
-def test_ps_server_key_is_a_permutation_of_the_bsk(keys):
-    _, _, tdsk = keys["arith_mb2"]
-    p = tdsk.params
-    key = ps_pbs.ps_server_key(tdsk)
-    assert ps_pbs.ps_server_key(tdsk) is key  # cached per key
-    nv1 = (1 << p.grouping) - 1
-    bsk = tdsk.bsk_ntt  # [n/g, 2^g-1, rows, k+1, NP, N]
-    assert tuple(key.bsk.shape) == (p.n // p.grouping, 4, nv1, p.gadget_rows, p.k + 1, p.N)
-    assert key.bsk.is_contiguous()
-    assert torch.equal(key.bsk, bsk.permute(0, 4, 1, 2, 3, 5))
-    j, pi, v, r, c = 3, 2, 1, 2, 1
-    assert torch.equal(key.bsk[j, pi, v, r, c], bsk[j, v, r, c, pi])
-    crt = ntt.crt_constants(p.N)
-    assert list(key.crt_w) == list(crt.w_mod) and list(key.crt_frac) == list(crt.frac)
+@pytest.mark.parametrize("name", sorted(PRIME_SETS))
+def test_crt_args_are_the_fold_constants(name):
+    """K6 reads K1's key layout; its own arguments are the fold's W_i mod
+    2^32 (u32) and W_i / P (f64), after the Garner constants."""
+    _, N = PRIME_SETS[name]
+    c = ntt.crt_constants(N)
+    (tw, w), (tf, f) = ps_pbs.crt_args(N)
+    assert tw._type_ is ctypes.c_uint32 and tf._type_ is ctypes.c_double
+    assert list(w) == list(c.w_mod) and list(f) == list(c.frac)
 
 
 def test_off_the_cpu_k6_launches_or_raises(keys):
