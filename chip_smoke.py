@@ -33,14 +33,20 @@ Phases, in order (each prints one line, with its seconds):
           versions are equal word for word, tests/test_torch_ps.py); the
           plain prime-split version itself runs on the card at the tiny sets
           and at GATES_128_K3 G=1024, and must equal k1's words there too
-  k4      the transposed blind-rotation kernel (K4) the same way, at every
-          set and width of k1: first its four-step transforms alone (the
-          N2-point stages on the int8 tensor cores) against fhe/ntt.py at
-          each ring size, then the rotation against K1's plain words; its own
+  k4      the transposed blind-rotation kernel (K4: K1's body with the
+          four-step transform, its N2-point stages on the int8 tensor cores,
+          one launch per rotation; its tile plan and staged limb matrices
+          printed per width) the same way, at every set and width of k1 and
+          at GATES_TPU_MB4 (grouping 4, N=1024) G=8: first its four-step
+          transforms alone (the rotation's device functions) against
+          fhe/ntt.py at each ring size, p = 65537's matrices in two limbs
+          at N=2048, then the rotation against K1's plain words; its own
           plain version (blind_rotate_transposed) runs on the card at the
-          tiny sets and GATES_128_K3 G=1024 and must equal them too
-  k3      the gate-major blind-rotation kernel (K3) the same way (its plain
-          version: blind_rotate_ladder)
+          tiny sets, GATES_TPU_MB4 and GATES_128_K3 G=1024 and must equal
+          them too
+  k3      the gate-major blind-rotation kernel (K3: K1's body with the
+          bit-ladder monomials, one launch per rotation) the same way at
+          every set and width of k1 (its plain version: blind_rotate_ladder)
   k2      the single-bit blind-rotation kernel (K2: K1's body at grouping 1,
           decomposing the rotated difference, one launch per rotation; its
           tile plan printed per width) against its plain torch
@@ -89,7 +95,9 @@ Phases, in order (each prints one line, with its seconds):
           vector at GATES_128_K3 (K1, then K6 under HELM_TPU_MB_KERNEL=ps,
           and the batch under HELM_TPU_MB_KERNEL=ts: K4),
           one c880-like vector at GATES_TPU and one chi-squared u32 vector
-          at ARITH_128_MB2: device time by kernel and the device's idle share
+          at ARITH_128_MB2: device time by kernel and the device's idle
+          share; under ts the rotation must be one rotate_tiles launch per
+          batch, with no rotate_group_ts or crt_accumulate
 
 The kernels' launch counters are set to 0 just before each main-path phase
 (batch, c880, g1, lut, arith, ps, serve, sweep) and read just after it;
@@ -408,17 +416,21 @@ class Smoke:
         )
 
     def _tile(self, kernel):
-        """The `detail` of phases k1, k6 and k2: the width's tile plan for
-        `kernel`, the bytes of the chunked BSK copy it reads (bsk_k1) and
-        those of the natural BSK every route keeps (dsk.bsk_ntt)."""
-        from helm_tpu_torch.ops import mb_pbs
+        """The `detail` of phases k1, k6, k2, k4 and k3: the width's tile plan
+        for `kernel` (for K4 also the directions of its limb matrices staged
+        in shared memory), the bytes of the chunked BSK copy it reads
+        (bsk_k1; K4: its own, in the four-step order) and those of the
+        natural BSK every route keeps (dsk.bsk_ntt)."""
+        from helm_tpu_torch.ops import mb_pbs, ts_pbs
 
         def tile(params, G):
             dsk = self.keys[params.name][2]
             plan = mb_pbs.plan_for(dsk, G, kernel)
-            k1 = mb_pbs.mb_server_key(dsk).bsk_k1
-            return (f"{plan.tiles} tiles of {plan.gt} gates, {plan.smem} B of shared memory a block, "
-                    f"the chunked BSK copy {k1.numel() * k1.element_size()} B, the natural BSK "
+            ts = kernel == "blind_rotate_ts"
+            copy = ts_pbs.ts_server_key(dsk).bsk if ts else mb_pbs.mb_server_key(dsk).bsk_k1
+            staged = f", {('no', 'the forward', 'both')[plan.staged]} limb matrices staged" if ts else ""
+            return (f"{plan.tiles} tiles of {plan.gt} gates, {plan.smem} B of shared memory a block{staged}, "
+                    f"the chunked BSK copy {copy.numel() * copy.element_size()} B, the natural BSK "
                     f"{dsk.bsk_ntt.numel() * dsk.bsk_ntt.element_size()} B")
 
         return tile
@@ -466,14 +478,17 @@ class Smoke:
         import numpy as np
         import torch
 
+        from helm_tpu_torch import params as P
         from helm_tpu_torch.fhe import ntt, pbs
         from helm_tpu_torch.ops import ts_pbs
 
-        # the transforms alone first (their tensor-core products, the
-        # three-limb path of p = 65537 at N=2048), then the rotation at
-        # every set and width of phase k1
+        # the transforms alone first (their tensor-core products, p =
+        # 65537's data in three limbs against its scaled matrices in two at
+        # N=2048), then the rotation at every set and width of phase k1 and
+        # at a full-size grouping-4 set
+        cases = (*self._k1_cases(), (P.GATES_TPU_MB4, 2031, (8,), False, (8,)))
         notes = []
-        for params, seed, *_ in self._k1_cases():
+        for params, seed, *_ in cases:
             _, _, dsk = self.keys_for(params, seed)
             N = params.N
             rng = np.random.default_rng(N)
@@ -486,13 +501,9 @@ class Smoke:
             assert torch.equal(got, x), f"K4 inverse four-step != ntt_inv_four_step at {params.name}"
             notes.append(params.name)
         print(f"[k4] four-step transforms on the tensor cores == ntt.py at {', '.join(notes)}", flush=True)
-        def copy(params, G):
-            b = ts_pbs.ts_server_key(self.keys[params.name][2]).bsk
-            return f"K4's BSK copy {b.numel() * b.element_size()} B"
-
         return self._check_kernel(
             "blind_rotate_ts", "K4", pbs.blind_rotate_transposed, ts_pbs.blind_rotate_ts,
-            self._k1_cases(), ("gates_128_k3", 1024), detail=copy,
+            cases, ("gates_128_k3", 1024), detail=self._tile("blind_rotate_ts"),
         )
 
     def phase_k3(self):
@@ -501,7 +512,7 @@ class Smoke:
 
         return self._check_kernel(
             "blind_rotate_gm", "K3", pbs.blind_rotate_ladder, gm_pbs.blind_rotate_gm,
-            self._k1_cases(), ("gates_128_k3", 1024),
+            self._k1_cases(), ("gates_128_k3", 1024), detail=self._tile("blind_rotate_gm"),
         )
 
     def phase_k2(self):
@@ -893,6 +904,10 @@ class Smoke:
                 f"idle share {max(0.0, 1 - busy / wall):.1%}; top: {top}"
             )
             print(f"[profile] {notes[-1]}", flush=True)
+            if name.endswith("under ts"):  # K4: one launch of the tile body per rotation
+                names = [k for _, k, _ in rows]
+                assert not [k for k in names if "rotate_group_ts" in k or "crt_accumulate" in k], names
+                assert [c for _, k, c in rows if "rotate_tiles" in k] == [1], rows
         return f"{len(notes)} windows profiled"
 
     def phase_cli(self):

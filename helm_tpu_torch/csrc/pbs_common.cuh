@@ -1,27 +1,24 @@
-// Device code shared by the blind-rotation kernels (sm_90a):
-// blind_rotate_mb.cu (K1, multi-bit), blind_rotate_sb.cu (K2,
-// single-bit), blind_rotate_gm.cu (K3, gate-major), blind_rotate_ts.cu
-// (K4, transposed) and blind_rotate_ps.cu (K6, prime-split); K1, K2 and
-// K6 through their common body, rotate_tiles.cuh. Each .cu builds into
-// its own library, so everything here sits in an anonymous namespace and
-// is compiled once per kernel file.
+// Device code of the blind-rotation kernels (sm_90a): blind_rotate_mb.cu
+// (K1, multi-bit), blind_rotate_ps.cu (K6, prime-split), blind_rotate_sb.cu
+// (K2, single-bit), blind_rotate_ts.cu (K4, transposed) and
+// blind_rotate_gm.cu (K3, gate-major), all five through their common
+// body, rotate_tiles.cuh. Each .cu builds into its own library, so
+// everything here sits in an anonymous namespace and is compiled once per
+// kernel file.
 //
 // What the kernels share:
 //   - the modular arithmetic of helm_tpu_torch/fhe/ntt.py (Shoup
 //     multiplies, Barrett reductions, Garner recombination);
-//   - decompose_rows: signed gadget decomposition of the k+1 GLWE
-//     components of one gate (params.component_gadgets), digit residues
-//     mod one prime, into shared memory, of the bare accumulator
-//     (AccWords) for K3 and K4 (rotate_tiles decomposes inline, fused with
-//     its first register pass);
-//   - ntt_fwd_rows / ntt_inv_rows: the forward and inverse NTTs of rows
-//     in shared memory (K3);
-//   - the register-pass NTTs of rotate_tiles (fwd_radix / inv_radix /
-//     RowSwizzle): a thread holds 8 words and runs up to 3 radix-2 stages
-//     on them in registers; shared memory only between passes, through a
-//     bank swizzle, with the twiddles in pass order;
-//   - rotate_tiles' asynchronous copies (mbarrier, cp.async.bulk) and
-//     distributed shared memory;
+//   - the register-pass NTTs (fwd_radix / inv_radix / RowSwizzle): a
+//     thread holds 8 words and runs up to 3 radix-2 stages on them in
+//     registers; shared memory only between passes, through a bank
+//     swizzle, with the twiddles in pass order. K4's four-step transform
+//     runs their first forward pass and last inverse stages as its 8-point
+//     stages;
+//   - the signed 8-bit limbs and the int8 tensor-core product of K4's
+//     N2-point stages (put_limbs, mma_s8);
+//   - the asynchronous copies (mbarrier, cp.async.bulk) and distributed
+//     shared memory of rotate_tiles;
 //   - the host-side unpacking and checking of the shape and the constants.
 
 #pragma once
@@ -33,7 +30,6 @@ namespace {
 
 constexpr int NP = 4;         // CRT primes (fhe/modring.py NUM_PRIMES)
 constexpr int MAX_ROWS = 16;  // gadget rows k*l_mask + l
-constexpr int THREADS = 256;  // K3 and K4
 
 struct Consts {
   uint32_t p[NP];
@@ -72,17 +68,13 @@ __device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t p) 
   return a < b ? r + p : r;
 }
 
-// x mod p for x < 2^40: q is floor(x/p) or one less, so one correction
+// x mod p for any u64 x: q = floor(x mu / 2^64) is floor(x/p) or one
+// less (mu = floor((2^64 - 1) / p) errs by under 1, so x mu / 2^64 by
+// under x / 2^64 < 1), so one correction
 __device__ __forceinline__ uint32_t reduce64(unsigned long long x, uint32_t p,
                                              unsigned long long mu) {
   unsigned long long q = __umul64hi(x, mu);
   uint32_t r = (uint32_t)(x - q * p);
-  return r >= p ? r - p : r;
-}
-
-// x mod p for any u32 x: q is floor(x/p) or one less, so one correction
-__device__ __forceinline__ uint32_t reduce32(uint32_t x, uint32_t p, uint32_t mu32) {
-  uint32_t r = x - __umulhi(x, mu32) * p;
   return r >= p ? r - p : r;
 }
 
@@ -107,122 +99,8 @@ __device__ __forceinline__ uint32_t garner(uint32_t r0, uint32_t r1, uint32_t r2
   return v3 > K.half_p3 ? x - K.prod_mod_q : x;        // balanced lift
 }
 
-// The source of the words decompose_rows decomposes for K3 and K4: the
-// bare accumulator, acc [G, k+1, N]
-struct AccWords {
-  const uint32_t* acc;
-  __device__ __forceinline__ uint32_t operator()(const Shape& S, int gate, int c,
-                                                 int coef) const {
-    return acc[((size_t)gate * S.kp1 + c) * S.N + coef];
-  }
-};
-
-// Which prime a row of an NTT over several rows is reduced by: one prime
-// for every row
-struct FixedPrime {
-  int pi;
-  __device__ __forceinline__ int operator()(int) const { return pi; }
-};
-
-// Signed gadget decomposition of one gate's k+1 components
-// (params.component_gadgets), the digits reduced mod prime pi, into
-// buf [rows, N] in shared memory. Src(S, gate, c, coef) yields the u32
-// word of component c to decompose. The caller synchronises.
-template <class Src>
-__device__ __forceinline__ void decompose_rows(const Src& src, uint32_t* buf, int gate,
-                                               int pi, const Shape& S, const Consts& K) {
-  const int N = S.N, logN = S.logN;
-  const uint32_t p = K.p[pi], mu32 = K.mu32[pi];
-  for (int idx = threadIdx.x; idx < S.kp1 * N; idx += blockDim.x) {
-    const int c = idx >> logN, coef = idx & (N - 1);
-    int bl, lv, row0;
-    if (c < S.k) {
-      bl = S.mask_bl; lv = S.mask_lv; row0 = c * S.mask_lv;
-    } else {
-      bl = S.bl; lv = S.lv; row0 = S.k * S.mask_lv;
-    }
-    const int total = bl * lv;  // < 32 (checked on the host)
-    const uint32_t b = 1u << bl, half = b >> 1;
-    // fhe/ops.py signed_decompose: round to the top bl*lv bits
-    uint32_t r = ((src(S, gate, c, coef) >> (32 - total - 1)) + 1u) >> 1;
-    r &= (1u << total) - 1u;
-    // least significant level first; level 0 (weight q/B) is row0
-    for (int j = lv - 1; j >= 0; --j) {
-      int d = (int)(r & (b - 1u));
-      const uint32_t carry = (uint32_t)d >= half;
-      if (carry) d -= (int)b;
-      r = (r >> bl) + carry;
-      // floor-mod (fhe/ntt.py digits_to_residues): |d| <= 2^15 < 4p
-      // (base_log <= 16, checked on the host), so d + 4p is a
-      // non-negative u32 with the same residue
-      buf[(row0 + j) * N + coef] = reduce32((uint32_t)(d + 4 * (int)p), p, mu32);
-    }
-  }
-}
-
-// Forward NTT of rows [0, nrows) of buf [.., N] in shared memory, every
-// row mod prime pi: merged-psi Cooley-Tukey (fhe/ntt.py ntt_fwd), natural
-// -> bit-reversed. Starts and ends with a barrier.
-__device__ __forceinline__ void ntt_fwd_rows(uint32_t* buf, int nrows, int pi,
-                                             const uint32_t* __restrict__ psi,
-                                             const uint32_t* __restrict__ psi_sh,
-                                             const Shape& S, const Consts& K) {
-  __syncthreads();
-  const int N = S.N, logN = S.logN;
-  const uint32_t p = K.p[pi];
-  const uint32_t* w_t = psi + pi * N;
-  const uint32_t* ws_t = psi_sh + pi * N;
-  const int half_n = N >> 1, total = nrows * half_n;
-  int logt = logN;
-  for (int m = 1; m < N; m <<= 1) {
-    --logt;
-    const int t = 1 << logt;
-    for (int bi = threadIdx.x; bi < total; bi += blockDim.x) {
-      const int row = bi >> (logN - 1), bb = bi & (half_n - 1);
-      const int i = bb >> logt, j = bb & (t - 1);
-      const int base = row * N + (i << (logt + 1)) + j;
-      const uint32_t u = buf[base];
-      const uint32_t v = mul_shoup(buf[base + t], __ldg(w_t + m + i), __ldg(ws_t + m + i), p);
-      buf[base] = add_mod(u, v, p);
-      buf[base + t] = sub_mod(u, v, p);
-    }
-    __syncthreads();
-  }
-}
-
-// Inverse NTT of rows [0, nrows) of buf [.., N] in shared memory, row r
-// mod prime prime_of(r): Gentleman-Sande (fhe/ntt.py ntt_inv),
-// bit-reversed -> natural, without the final N^-1 scale (the callers
-// apply it as they read the residues). Starts and ends with a barrier.
-template <class PrimeOf>
-__device__ __forceinline__ void ntt_inv_rows(uint32_t* buf, int nrows, PrimeOf prime_of,
-                                             const uint32_t* __restrict__ psi_inv,
-                                             const uint32_t* __restrict__ psi_inv_sh,
-                                             const Shape& S, const Consts& K) {
-  __syncthreads();
-  const int N = S.N, logN = S.logN;
-  const int half_n = N >> 1, total = nrows * half_n;
-  int logt = 0;
-  for (int m = N; m > 1; m >>= 1) {
-    const int h = m >> 1, t = 1 << logt;
-    for (int bi = threadIdx.x; bi < total; bi += blockDim.x) {
-      const int row = bi >> (logN - 1), bb = bi & (half_n - 1);
-      const int i = bb >> logt, j = bb & (t - 1);
-      const int base = row * N + (i << (logt + 1)) + j;
-      const int pi = prime_of(row);
-      const uint32_t p = K.p[pi];
-      const uint32_t u = buf[base], w = buf[base + t];
-      buf[base] = add_mod(u, w, p);
-      buf[base + t] = mul_shoup(sub_mod(u, w, p), __ldg(psi_inv + pi * N + h + i),
-                                __ldg(psi_inv_sh + pi * N + h + i), p);
-    }
-    ++logt;
-    __syncthreads();
-  }
-}
-
 // ---------------------------------------------------------------------
-// Register-pass NTTs (rotate_tiles: K1, K2, K6). A pass runs R <= 3
+// Register-pass NTTs (rotate_tiles). A pass runs R <= 3
 // radix-2 stages on the 2^R words of a block a thread holds in registers,
 // so a transform of N = 2^logN words is ceil(logN / 3) passes with a
 // shared-memory exchange between them (3 at N = 512, 4 at N = 1024 and
@@ -261,7 +139,8 @@ __device__ __forceinline__ uint32_t mul_shoup_min(uint32_t a, uint32_t w, uint32
   return min(r, r - p);
 }
 
-// x mod p for any u32 x (reduce32's value, the correction as a min)
+// x mod p for any u32 x: q is floor(x/p) or one less, so one correction,
+// as a min
 __device__ __forceinline__ uint32_t reduce32_min(uint32_t x, uint32_t p, uint32_t mu32) {
   const uint32_t r = x - __umulhi(x, mu32) * p;
   return min(r, r - p);
@@ -384,8 +263,47 @@ __device__ __forceinline__ void ntt_passes(uint32_t* buf, int nrows, int gt, int
 }
 
 // ---------------------------------------------------------------------
+// Signed 8-bit limbs and the int8 tensor-core product (K4's N2-point
+// stages, rotate_tiles.cuh FourStepTC)
+
+// The balanced value of residue x mod p (in [-(p/2), p/2]) as nl <= 3
+// signed 8-bit limbs (fhe/ntt.py split_limbs), limb l at dst[l * plane]
+__device__ __forceinline__ void put_limbs(int8_t* dst, size_t plane, uint32_t x, uint32_t p,
+                                          int nl) {
+  int b = x > (p >> 1) ? (int)x - (int)p : (int)x;
+#pragma unroll
+  for (int l = 0; l < 3; ++l) {
+    if (l >= nl) break;
+    const int lo = ((b + 128) & 255) - 128;
+    dst[l * plane] = (int8_t)lo;
+    b = (b - lo) >> 8;
+  }
+}
+
+// c += A B for one 16 x 8 x 32 tile: s8 x s8 -> s32 (the PTX ISA's
+// fragment layouts: a0-a3 rows g and g + 8, bytes 4t.. and 16 + 4t..;
+// b0, b1 column g, the same bytes)
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The four 8 x 16-byte matrices whose rows the lanes address (lanes 8j ..
+// 8j + 7: matrix j) into r[j], in the mma fragment layout: lane (g, t)
+// gets bytes 4t..4t+3 of row g (ldmatrix .b16, int8 pairs as 16-bit)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(row))));
+}
+
+// ---------------------------------------------------------------------
 // Asynchronous bulk copies into shared memory, completed on an mbarrier
-// (rotate_tiles' BSK ring)
+// (rotate_tiles' BSK ring and K4's staged limb matrices)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));

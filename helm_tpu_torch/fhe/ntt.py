@@ -461,6 +461,63 @@ def ntt_inv_four_step(y: torch.Tensor, N: int) -> torch.Tensor:
     return x.reshape(lead + (NUM_PRIMES, N))
 
 
+# ----------------------------------------------------------------------
+# The matrix operand of the Hopper kernel's N2-point products. Two signed
+# 8-bit limbs hold the integers [-32896, 32639] (`WINDOW`). A residue x mod
+# p has a representative there, x itself up to 32639, else x - p, unless
+# 32639 < x < p - 32896: no residue of a prime below 65536, and of 65537
+# exactly one, 32640. The kernel scales each N2 x N2 matrix of 65537 by the
+# least c that moves every entry off it, so that the matrix takes two limbs
+# (the data operand keeps limb_count(p)), and folds c^-1 into the limb
+# shifts' recombination constants: sum_s acc_s (256^s c^-1 mod p).
+# ----------------------------------------------------------------------
+
+#: the integers two signed 8-bit limbs hold
+WINDOW = (-128 - 128 * 256, 127 + 127 * 256)
+
+
+def window(x, p):
+    """Residues in [0, p) -> their representatives in `WINDOW` (x, or x - p
+    above 32639); asserts that every one has one."""
+    r = np.where(np.asarray(x) > WINDOW[1], np.asarray(x) - p, np.asarray(x))
+    assert (r >= WINDOW[0]).all(), f"a residue mod {p} has no two-limb representative"
+    return r
+
+
+def matrix_scale(w: np.ndarray, p: int) -> int:
+    """The least c >= 1 such that every entry of c w mod p has a two-limb
+    representative: 1 for every prime below 65536."""
+    for c in range(1, p):
+        v = (np.asarray(w, np.int64) * c) % p
+        if not ((v > WINDOW[1]) & (v < p + WINDOW[0])).any():
+            return c
+    raise ValueError(f"no scale puts every entry mod {p} in two limbs")
+
+
+@functools.lru_cache(maxsize=None)
+def window_tables(N: int) -> dict:
+    """The four-step matrices as the Hopper kernel multiplies them: per
+    prime, the scale c of `matrix_scale` and the two limbs of c w2 mod p
+    (and of c w2i) in `WINDOW`, w2_win / w2i_win [NP, 2, N2, N2] int8;
+    their recombination constants 256^s c^-1 mod p, s < 2 MAX_LIMBS - 2
+    (the data's limbs plus one), w2_rc / w2i_rc [NP, 4]; and the data's
+    limb counts, limbs [NP]."""
+    t = mxu_tables(N)
+    out = {"limbs": t["limbs"]}
+    for name in ("w2", "w2i"):
+        scale, limbs, rc = [], [], []
+        for pi, p in enumerate(t["primes"]):
+            c = matrix_scale(t[name][pi], p)
+            rep = window((t[name][pi] * c) % p, p)
+            limbs.append(np.stack([x.astype(np.int8) for x in split_limbs(rep, 2)]))
+            rc.append([pow(256, s, p) * pow(c, -1, p) % p for s in range(2 * MAX_LIMBS - 2)])
+            scale.append(c)
+        out[name + "_scale"] = np.array(scale, np.int64)
+        out[name + "_win"] = np.stack(limbs)
+        out[name + "_rc"] = np.array(rc, np.int64)
+    return out
+
+
 def _generic_modmul(a, b, p):
     """(a*b) mod p for a,b < p <= 2^16+1 without precomputation (the
     reference's 16-bit split, kept so intermediate values match)."""

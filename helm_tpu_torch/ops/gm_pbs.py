@@ -2,12 +2,15 @@
 
 Counterpart of `helm_tpu/ops/mxu_pbs.py::blind_rotate_mxu_mb` (:1811, body
 `_make_kernel_mb` :567): `blind_rotate_gm` launches the hand-written CUDA
-kernel in `csrc/blind_rotate_gm.cu` (one launch per group, one block per
-gate holding every CRT prime; NTT(X^a) by the bit ladder over
-`pbs.monomial_tables`; Shoup products against the BSK and its companion),
-and `gm_server_key` replaces `mxu_server_key` (:1629) with the companion and
-the ladder tables, cached per key as `mb_server_key` is. Its plain version
-is `fhe/pbs.py::blind_rotate_ladder`.
+kernel in `csrc/blind_rotate_gm.cu`, the tile body of K1
+(`csrc/rotate_tiles.cuh`, whose cluster holds every CRT prime of a tile
+in one step: the TPU kernel's gate-major step) with NTT(X^a) built by the
+bit ladder over `pbs.monomial_tables` in place of K1's power table. It
+reads K1's chunked BSK (`mb_server_key(dsk).bsk_k1`); `gm_server_key`
+replaces `mxu_server_key` (:1629) with the ladder's tables alone, cached
+per key as `mb_server_key` is (the TPU kernel's Shoup companion of the
+BSK is not carried over). Its plain version is
+`fhe/pbs.py::blind_rotate_ladder`.
 
 No engine routes to K3, as no engine of `helm_tpu` routes to its TPU
 kernel: the multi-bit sweep (`helm_tpu_torch/tools/mb_sweep.py`, LAYOUT=gm)
@@ -27,25 +30,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..fhe import ops, pbs
-from ..fhe.ntt import from_i32_bits, to_i32_bits
-from . import build
-from .mb_pbs import check_inputs, mb_server_key
+from ..fhe import pbs
+from .mb_pbs import K3_BUILDS, check_build, check_inputs, rotate_tiles
 
 _P = ctypes.c_void_p
-_I = ctypes.c_int
-_ARGTYPES = [_P] * 10 + [ctypes.POINTER(ctypes.c_uint32)] + [_I] * 9 + [_P]
 
 
 @dataclass(frozen=True, eq=False)
 class GmKernelKey:
-    """K3's view of one server key beyond K1's: the BSK's Shoup companion
-    in the BSK's natural order [n/g, 2^g-1, rows, k+1, NP, N] (K1's
-    `mb_server_key` holds the BSK itself), and the bit ladder's tables
-    T[b] = NTT(X^(2^b)) with their companions, [log2(2N), NP, N]."""
+    """K3's view of one server key beyond K1's (`mb_server_key`, whose
+    chunked BSK it reads): the bit ladder's tables T[b] = NTT(X^(2^b))
+    and their Shoup companions, [log2(2N), NP, N]."""
 
-    bsk_sh: torch.Tensor  # i32 bit patterns
-    mono: torch.Tensor
+    mono: torch.Tensor  # i32 bit patterns
     mono_sh: torch.Tensor
 
 
@@ -63,7 +60,7 @@ def gm_server_key(dsk: pbs.DeviceServerKey) -> GmKernelKey:
         torch.from_numpy(t.astype(np.int64)).to(torch.int32).to(dsk.device)
         for t in pbs.monomial_tables(dsk.params.N)
     )
-    key = GmKernelKey(bsk_sh=dsk.bsk_ntt_sh.contiguous(), mono=mono, mono_sh=mono_sh)
+    key = GmKernelKey(mono=mono, mono_sh=mono_sh)
     _layouts[dsk] = key
     return key
 
@@ -87,23 +84,12 @@ def blind_rotate_gm(
     if lwe_in.device.type != "cuda":
         raise NotImplementedError(f"blind_rotate_gm: no kernel for {lwe_in.device}")
     check_inputs(dsk, lwe_in, testv, "blind_rotate_gm")
-    n, N = p.n, p.N
-    G = lwe_in.shape[0]
-    key = mb_server_key(dsk)  # the BSK, twiddles, Garner constants
+    check_build(p, K3_BUILDS, "K3")
     gkey = gm_server_key(dsk)
-    acc = to_i32_bits(pbs.initial_acc(p, lwe_in, testv)).contiguous()
-    abar = ops.mod_switch(lwe_in[:, :n], N).to(torch.int32).contiguous()
-    (mbl, mlv), (bl, lv) = p.component_gadgets[0], p.component_gadgets[-1]
-    rc = build.entry("blind_rotate_gm", _ARGTYPES)(
-        acc.data_ptr(), abar.data_ptr(), key.bsk.data_ptr(), gkey.bsk_sh.data_ptr(),
-        gkey.mono.data_ptr(), gkey.mono_sh.data_ptr(),
-        key.psi.data_ptr(), key.psi_sh.data_ptr(), key.psi_inv.data_ptr(), key.psi_inv_sh.data_ptr(),
-        key.consts, G, n, N, p.k, p.grouping, mbl, mlv, bl, lv,
-        torch.cuda.current_stream(lwe_in.device).cuda_stream,
-    )
-    build.check(rc, "helm_blind_rotate_gm")
+    out = rotate_tiles("blind_rotate_gm", dsk, lwe_in, testv,
+                       [(_P, gkey.mono.data_ptr()), (_P, gkey.mono_sh.data_ptr())])
     blind_rotate_gm.launches += 1
-    return from_i32_bits(acc)
+    return out
 
 
 blind_rotate_gm.launches = 0

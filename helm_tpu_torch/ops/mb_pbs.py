@@ -13,12 +13,15 @@ the transposed K4 (`ops/ts_pbs.py`).
 K1 is one launch per rotation: a cluster of NP blocks (one per CRT prime)
 owns a tile of gates and walks every group with the tile's accumulator in
 shared memory. Its body (`csrc/rotate_tiles.cuh`) is also K6's (with the
-CRT fold in place of Garner) and K2's (at grouping 1, with the rotated
-difference as the decomposed words); `rotate_tiles` below launches any of
-the three. `tile_plan` picks the tile for a width from the shared-memory
-budget; `mb_server_key` lays the BSK out in the frequency chunks the
-kernels stream, and the twiddles in the order their register passes read
-them (`pass_stages`, `twiddles_by_pass`, `bank_swizzle`).
+CRT fold in place of Garner), K2's (at grouping 1, with the rotated
+difference as the decomposed words), K4's (with the four-step transform
+on the int8 tensor cores in place of the register passes) and K3's (with
+the bit-ladder monomials in place of the power table); `rotate_tiles`
+below launches any of the five. `tile_plan` picks the tile for a width
+from the shared-memory budget; `mb_server_key` lays the BSK out in the
+frequency chunks the kernels stream, and the twiddles in the order their
+register passes read them (`pass_stages`, `twiddles_by_pass`,
+`bank_swizzle`).
 
 Dispatch is by the device of the input tensor: on the CPU the plain
 torch version (`fhe/pbs.py`) runs; on a CUDA tensor the kernel is
@@ -36,7 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..fhe import ops, pbs
+from ..fhe import ntt, ops, pbs
 from ..fhe.modring import NUM_PRIMES, primes_for
 from ..fhe.ntt import from_i32_bits, to_i32_bits
 from ..params import TfheParams
@@ -46,7 +49,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 7 + [ctypes.POINTER(ctypes.c_uint32)] + [_I] * 12 + [_P]
 
-#: the launch shape of K1, K6 and K2 (csrc/rotate_tiles.cuh): threads per
+#: the launch shape of the tile body (csrc/rotate_tiles.cuh): threads per
 #: block, BSK ring stages, the dynamic shared memory a block may take (227
 #: KB), the largest gate tile, and the bytes of one streamed BSK chunk. The
 #: kernel checks every launch against its own copy of these and of
@@ -70,6 +73,10 @@ SWIZZLE = (25, 31, 21, 22, 11, 9, 26, 18, 8)
 #: (blind_rotate_mb.cu and blind_rotate_ps.cu select_kernel): every
 #: multi-bit set of params.py (none has grouping 3)
 K1_BUILDS = frozenset({(2, 4), (2, 6), (2, 8), (2, 9), (4, 4)})
+#: those of K4 and K3 (blind_rotate_ts.cu and blind_rotate_gm.cu
+#: select_kernel): K1's
+K4_BUILDS = K1_BUILDS
+K3_BUILDS = K1_BUILDS
 #: (grouping, gadget rows) that K2 has a build for (blind_rotate_sb.cu
 #: select_kernel): every grouping-1 set of params.py, and the tiny k=3 one
 #: of chip_smoke.py's phase k2
@@ -127,16 +134,18 @@ def fits_u32(primes, terms: int) -> bool:
 
 @dataclass(frozen=True)
 class TilePlan:
-    """One K1 launch shape: `gt` gates per cluster tile (a power of two),
-    `tiles` clusters, the BSK streamed in chunks of `chunk` frequencies,
-    `smem` bytes of dynamic shared memory per block. One launch runs every
-    CMux group of the rotation."""
+    """One launch shape of the tile body: `gt` gates per cluster tile (a
+    power of two), `tiles` clusters, the BSK streamed in chunks of `chunk`
+    frequencies, `smem` bytes of dynamic shared memory per block, and for
+    K4 the directions of its N2-point limb matrices staged in shared memory
+    (`staged_mats`). One launch runs every CMux group of the rotation."""
 
     gt: int
     tiles: int
     chunk: int
     smem: int
     narrow: bool
+    staged: int = 0
 
 
 def _narrow(p) -> bool:
@@ -156,50 +165,86 @@ def chunk_freqs(p) -> int:
     return cf
 
 
-def smem_bytes(p, gt: int, chunk: int) -> int:
-    """Dynamic shared memory of one block of K1, K6 or K2 (rotate_tiles.cuh
-    `SmemLayout`): the BSK ring, its mbarriers, the tile's rows [rows, gt,
-    N] u32 (gadget rows, then the k+1 products in place), its quarter of
-    the accumulators [k+1, gt, N/4] u32, the pass-ordered twiddles of both
-    directions (u32 pairs), the power table [2N] u32 (only for grouping >
-    1: K2 scales by no subset polynomial), the swizzle [N] u8 and the
-    group's a_i [MAX_TILE, 4] i32."""
+def _up(x: int, a: int = 16) -> int:
+    return -(-x // a) * a
 
-    def up(x, a=16):
-        return -(-x // a) * a
 
+def _base_bytes(p, gt: int, chunk: int) -> int:
     N, rows, kp1 = p.N, p.gadget_rows, p.k + 1
     elt = 2 if _narrow(p) else 4
     ring = STAGES * ((1 << p.grouping) - 1) * rows * kp1 * chunk * elt
     return (
-        up(ring, 128) + up(STAGES * 8) + rows * gt * N * 4 + kp1 * gt * (N // 4) * 4
-        + 2 * N * 8 + (2 * N * 4 if p.grouping > 1 else 0) + up(N) + MAX_TILE * 4 * 4
+        _up(ring, 128) + _up(STAGES * 8) + rows * gt * N * 4 + kp1 * gt * (N // 4) * 4
+        + 2 * N * 8 + (2 * N * 4 if p.grouping > 1 else 0) + _up(N) + MAX_TILE * 4 * 4
     )
 
 
-def tile_plan(p, G: int, slots) -> TilePlan:
-    """The launch shape of K1, K6 or K2 for G gates at set p. Tiles are
-    powers of two up to the largest that fits SMEM_LIMIT; `slots(gt)` is how
-    many clusters the card holds at once (`cluster_slots`), so a launch runs
-    in ceil(tiles / slots) waves. A tile of gt gates takes about gt + 1
-    gate-times per wave (its chain of barriers costs about a gate's work:
-    1 : 1.5 : 2.6 : 5.0 at gt = 1, 2, 4, 8 measured for K1 at GATES_128_K3
-    on an H100); the plan takes the tile of least waves x (gt + 1), the
-    narrowest on a tie."""
+def tc_bytes(p, gt: int, staged: int) -> int:
+    """K4's shared memory beyond the body's (rotate_tiles.cuh `TcLayout`,
+    `TcGeo`): two mbarriers, the 8-point stages' twiddle pairs [16], the
+    staged directions of the limb matrices (2 limbs x Kp x N2 bytes each,
+    Kp = N2 rounded up to the mma depth 32), and the data's limb planes:
+    limb_count of the largest prime planes of [Mp, Kp + 16] int8, Mp = rows
+    x gt x 8 rounded up to 16 (the rows of the forward product)."""
+    N2 = p.N // ntt.N1
+    kp = _up(N2, 32)
+    nlmax = max(ntt.limb_count(q) for q in primes_for(p.N))
+    return 16 + 16 * 8 + staged * 2 * kp * N2 + nlmax * _up(p.gadget_rows * gt * ntt.N1) * (kp + 16)
+
+
+def staged_mats(p, gt: int, chunk: int) -> int:
+    """The directions of K4's limb matrices a tile of gt gates stages in
+    shared memory: both (2), the forward one (1) or none (0), the most that
+    fit SMEM_LIMIT; the rest are read from L2 (csrc/rotate_tiles.cuh
+    `prepare` makes the same choice)."""
+    base = _base_bytes(p, gt, chunk)
+    return next((s for s in (2, 1) if base + tc_bytes(p, gt, s) <= SMEM_LIMIT), 0)
+
+
+def smem_bytes(p, gt: int, chunk: int, kernel: str = "blind_rotate_mb") -> int:
+    """Dynamic shared memory of one block of the tile body (rotate_tiles.cuh
+    `SmemLayout`): the BSK ring, its mbarriers, the tile's rows [rows, gt,
+    N] u32 (gadget rows, then the k+1 products in place), its quarter of
+    the accumulators [k+1, gt, N/4] u32, the twiddles of both directions
+    (u32 pairs: pass-ordered, or K4's twists), the power table [2N] u32
+    (only for grouping > 1: K2 scales by no subset polynomial; K3 stages
+    it unread and builds its monomials by the bit ladder), the
+    swizzle [N] u8 and the group's a_i [MAX_TILE, 4] i32; for K4 (`kernel`
+    blind_rotate_ts) `tc_bytes` more (`TcLayout`), for K3 (blind_rotate_gm)
+    the step's monomials [gt, g, N] u16."""
+    base = _base_bytes(p, gt, chunk)
+    if kernel == "blind_rotate_ts":
+        return base + tc_bytes(p, gt, staged_mats(p, gt, chunk))
+    if kernel == "blind_rotate_gm":
+        return base + gt * p.grouping * p.N * 2
+    return base
+
+
+def tile_plan(p, G: int, slots, kernel: str = "blind_rotate_mb") -> TilePlan:
+    """The launch shape of `kernel` (K1, K6, K2, K4 or K3) for G gates at
+    set p. Tiles are powers of two up to the largest that fits SMEM_LIMIT;
+    `slots(gt)` is how many clusters the card holds at once
+    (`cluster_slots`), so a launch runs in ceil(tiles / slots) waves. A
+    tile of gt gates takes about gt + 1 gate-times per wave (its chain of
+    barriers costs about a gate's work: 1 : 1.5 : 2.6 : 5.0 at gt = 1, 2,
+    4, 8 measured for K1 at GATES_128_K3 on an H100); the plan takes the
+    tile of least waves x (gt + 1), the narrowest on a tie."""
     chunk = chunk_freqs(p)
-    if smem_bytes(p, 1, chunk) > SMEM_LIMIT:
-        raise ValueError(f"{p.name}: one gate takes {smem_bytes(p, 1, chunk)} bytes of shared memory")
+    one = smem_bytes(p, 1, chunk, kernel)
+    if one > SMEM_LIMIT:
+        raise ValueError(f"{p.name}: one gate takes {one} bytes of shared memory")
     best = None
     gt = 1
-    while gt <= MAX_TILE and smem_bytes(p, gt, chunk) <= SMEM_LIMIT:
+    while gt <= MAX_TILE and smem_bytes(p, gt, chunk, kernel) <= SMEM_LIMIT:
         waves = _cdiv(_cdiv(G, gt), max(1, slots(gt)))
         cost = waves * (gt + 1)
         if best is None or cost < best[0]:
             best = (cost, gt)
         gt *= 2
     gt = best[1]
-    return TilePlan(gt=gt, tiles=_cdiv(G, gt), chunk=chunk, smem=smem_bytes(p, gt, chunk),
-                    narrow=_narrow(p))
+    return TilePlan(gt=gt, tiles=_cdiv(G, gt), chunk=chunk, smem=smem_bytes(p, gt, chunk, kernel),
+                    narrow=_narrow(p),
+                    staged=staged_mats(p, gt, chunk) if kernel == "blind_rotate_ts" else 0)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -207,9 +252,10 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def plan_for(dsk: pbs.DeviceServerKey, G: int, kernel: str = "blind_rotate_mb") -> TilePlan:
-    """The tile plan `kernel` (K1 blind_rotate_mb, K6 blind_rotate_ps or K2
-    blind_rotate_sb) launches for G gates with key dsk on its card."""
-    return tile_plan(dsk.params, G, lambda gt: cluster_slots(dsk, gt, kernel))
+    """The tile plan `kernel` (K1 blind_rotate_mb, K6 blind_rotate_ps, K2
+    blind_rotate_sb, K4 blind_rotate_ts or K3 blind_rotate_gm) launches
+    for G gates with key dsk on its card."""
+    return tile_plan(dsk.params, G, lambda gt: cluster_slots(dsk, gt, kernel), kernel)
 
 
 _SLOT_ARGTYPES = [ctypes.POINTER(ctypes.c_uint32)] + [_I] * 11 + [ctypes.POINTER(ctypes.c_int)] * 2
@@ -217,8 +263,8 @@ _slots: dict = {}
 
 
 def cluster_slots(dsk: pbs.DeviceServerKey, gt: int, kernel: str = "blind_rotate_mb") -> int:
-    """The clusters of `kernel` (csrc/<kernel>.cu: K1, K6 or K2) the card
-    holds at once for tiles of gt gates at dsk's set
+    """The clusters of `kernel` (csrc/<kernel>.cu: K1, K6, K2, K4 or K3)
+    the card holds at once for tiles of gt gates at dsk's set
     (cudaOccupancyMaxActiveClusters), asked once per kernel, set and tile.
     Raises unless the kernel's shared memory for the tile, from its own
     layout, is `smem_bytes`'s."""
@@ -231,20 +277,21 @@ def cluster_slots(dsk: pbs.DeviceServerKey, gt: int, kernel: str = "blind_rotate
         symbol = f"helm_{kernel}_clusters"
         rc = build.entry(kernel, _SLOT_ARGTYPES, symbol)(
             kk.consts, p.n, p.N, p.k, p.grouping, mbl, mlv, bl, lv, gt, kk.chunk,
-            kk.bsk_k1.element_size(), ctypes.byref(out), ctypes.byref(smem),
+            2 if _narrow(p) else 4, ctypes.byref(out), ctypes.byref(smem),
         )
         build.check(rc, symbol)
-        if smem.value != smem_bytes(p, gt, kk.chunk):
+        want = smem_bytes(p, gt, kk.chunk, kernel)
+        if smem.value != want:
             raise RuntimeError(
                 f"{p.name}: {kernel} takes {smem.value} B of shared memory for {gt} gates, "
-                f"mb_pbs.smem_bytes says {smem_bytes(p, gt, kk.chunk)}"
+                f"mb_pbs.smem_bytes says {want}"
             )
         _slots[key] = out.value
     return _slots[key]
 
 
 def tiled_bsk(bsk_ntt: torch.Tensor, p, chunk: int, narrow: bool) -> torch.Tensor:
-    """The BSK layout of K1, K6 and K2: [n/g, 2^g-1, rows, k+1, NP, N]
+    """The BSK layout of the tile body: [n/g, 2^g-1, rows, k+1, NP, N]
     (a grouping-1 BSK [n, rows, k+1, NP, N] is that at g = 1) ->
     [n/g, NP, N/chunk, 2^g-1, rows, k+1, chunk], so that each block (one
     prime) streams one contiguous chunk of its step's slab at a time; as
@@ -259,15 +306,15 @@ def tiled_bsk(bsk_ntt: torch.Tensor, p, chunk: int, narrow: bool) -> torch.Tenso
 class MbKernelKey:
     """The kernels' view of one server key, derived once per key.
 
-    K3 reads the NTT-domain BSK as u32 words in its natural
-    [n/g, 2^g-1, rows, k+1, NP, N] order (`bsk`, the device key's own
-    tensor: no copy); the kernels read the twiddles, the power table and
-    the constants. K1, K6 and K2 read `bsk_k1` (`tiled_bsk`), `twf` / `twi`
+    `bsk` is the device key's own NTT-domain BSK in its natural
+    [n/g, 2^g-1, rows, k+1, NP, N] order (no copy); the plain versions
+    read it. K1, K6, K2 and K3 read `bsk_k1` (`tiled_bsk`), `twf` / `twi`
     (the twiddles and their Shoup companions as pairs [NP, N, 2] in
     register-pass order, `twiddles_by_pass`) and `swizzle`
-    (`bank_swizzle`); K4 its own layout (`ts_pbs.ts_server_key`). The
-    Shoup companion of the BSK is dropped (the kernels reduce with a
-    Barrett constant per prime)."""
+    (`bank_swizzle`); K4 reads its own BSK and twists
+    (`ts_pbs.ts_server_key`); all read the power table (K3 aside) and the
+    constants. The Shoup companion of the BSK is dropped (the kernels
+    reduce with a Barrett constant per prime)."""
 
     params: TfheParams
     bsk: torch.Tensor  # i32 bit patterns
@@ -288,7 +335,7 @@ class MbKernelKey:
         """The BSK chunked per step and prime (`tiled_bsk`), i16 where every
         product sum fits u32: a second copy of the BSK on the device, half
         or all of `bsk`'s bytes. Built on first use, so only a key whose
-        kernel reads it (K1, K6, K2) holds it."""
+        kernel reads it (K1, K6, K2, K3) holds it."""
         return tiled_bsk(self.bsk, self.params, self.chunk, _narrow(self.params))
 
 
@@ -367,8 +414,9 @@ def check_inputs(dsk: pbs.DeviceServerKey, lwe_in, testv, what: str) -> None:
 
 
 def check_build(p, builds, what: str) -> None:
-    """Raise unless `builds` (K1_BUILDS, K2_BUILDS) holds p's (grouping,
-    gadget rows): the kernel file has no template build for another."""
+    """Raise unless `builds` (K1_BUILDS, K2_BUILDS, K4_BUILDS, K3_BUILDS)
+    holds p's (grouping, gadget rows): the kernel file has no template
+    build for another."""
     if (p.grouping, p.gadget_rows) not in builds:
         raise ValueError(
             f"{p.name}: {what} has no build for grouping {p.grouping} with {p.gadget_rows} gadget rows"
@@ -376,27 +424,31 @@ def check_build(p, builds, what: str) -> None:
 
 
 def rotate_tiles(kernel: str, dsk: pbs.DeviceServerKey, lwe_in: torch.Tensor, testv: torch.Tensor,
-                 extra=()) -> torch.Tensor:
+                 extra=(), tables=None) -> torch.Tensor:
     """One launch of csrc/<kernel>.cu (K1 blind_rotate_mb, K6
-    blind_rotate_ps or K2 blind_rotate_sb: the body of rotate_tiles.cuh
-    with the kernel's word source and epilogue) on CUDA tensors checked by
-    the caller, with the tile plan `plan_for` picks; `extra`: the kernel's
-    own constants as (ctypes type, value) pairs, passed after the Garner
-    constants. Returns the [G, k+1, N] words."""
+    blind_rotate_ps, K2 blind_rotate_sb, K4 blind_rotate_ts or K3
+    blind_rotate_gm: the body of rotate_tiles.cuh with the kernel's word
+    source, epilogue, transform and monomial source) on CUDA tensors
+    checked by the caller, with the tile plan `plan_for` picks; `extra`:
+    the kernel's own tables and constants as (ctypes type, value) pairs,
+    passed after the Garner constants; `tables`: (BSK, forward, inverse
+    twiddle pairs) in place of `bsk_k1`, `twf`, `twi` (K4's). Returns the
+    [G, k+1, N] words."""
     p = dsk.params
     n, N, k = p.n, p.N, p.k
     G = lwe_in.shape[0]
     key = mb_server_key(dsk)
+    bsk, twf, twi = tables or (key.bsk_k1, key.twf, key.twi)
     plan = plan_for(dsk, G, kernel)
     acc = to_i32_bits(pbs.initial_acc(p, lwe_in, testv)).contiguous()
     abar = ops.mod_switch(lwe_in[:, :n], N).to(torch.int32).contiguous()
     (mbl, mlv), (bl, lv) = p.component_gadgets[0], p.component_gadgets[-1]
     argtypes = _ARGTYPES[:8] + [t for t, _ in extra] + _ARGTYPES[8:]
     rc = build.entry(kernel, argtypes)(
-        acc.data_ptr(), abar.data_ptr(), key.bsk_k1.data_ptr(),
-        key.twf.data_ptr(), key.twi.data_ptr(), key.pw.data_ptr(),
+        acc.data_ptr(), abar.data_ptr(), bsk.data_ptr(),
+        twf.data_ptr(), twi.data_ptr(), key.pw.data_ptr(),
         key.swizzle.data_ptr(), key.consts, *(v for _, v in extra),
-        G, n, N, k, p.grouping, mbl, mlv, bl, lv, plan.gt, plan.chunk, key.bsk_k1.element_size(),
+        G, n, N, k, p.grouping, mbl, mlv, bl, lv, plan.gt, plan.chunk, bsk.element_size(),
         torch.cuda.current_stream(lwe_in.device).cuda_stream,
     )
     build.check(rc, f"helm_{kernel}")
@@ -477,8 +529,9 @@ def blind_rotation(params):
 def kernel_layouts(dsk: pbs.DeviceServerKey) -> None:
     """Build the key layouts the selected kernel reads (`mb_server_key`'s
     tables for every kernel; its chunked `bsk_k1` for K1, K6 and K2, but
-    not under "ts"; K4's `ts_server_key` under "ts"), so that an engine
-    pays for them once, up front."""
+    not under "ts"; K4's `ts_server_key`, with its own chunked BSK in the
+    four-step order, under "ts"), so that an engine pays for them once, up
+    front."""
     key = mb_server_key(dsk)
     if dsk.params.grouping > 1 and mb_kernel() == "ts":
         from .ts_pbs import ts_server_key

@@ -2,12 +2,14 @@
 
 Counterpart of `helm_tpu/ops/ts_pbs.py::blind_rotate_ts_mb` (:643, body
 `_make_kernel_ts_mb` :353): `blind_rotate_ts` launches the hand-written
-CUDA kernel in `csrc/blind_rotate_ts.cu`, whose four-step NTT runs its
-N2-point stages as int8 tensor-core products with the gates' polynomials
-along the rows, and `ts_server_key` replaces the BSK layout
-`mxu_server_key_ts` (:299): the BSK in the four-step frequency order,
-prime-outermost, cached per key as `mb_server_key` is. Its plain version
-is `fhe/pbs.py::blind_rotate_transposed`. K4 computes K1's function, so
+CUDA kernel in `csrc/blind_rotate_ts.cu`, the tile body of K1
+(`csrc/rotate_tiles.cuh`) with the four-step NTT in place of the register
+passes: its N2-point stages run as int8 tensor-core products with the
+gates' polynomials along the rows. `ts_server_key` replaces the BSK layout
+`mxu_server_key_ts` (:299): the BSK chunked as K1's (`mb_pbs.tiled_bsk`)
+in the four-step frequency order, cached per key as `mb_server_key` is,
+and the transform's tables. Its plain version is
+`fhe/pbs.py::blind_rotate_transposed`. K4 computes K1's function, so
 `mb_pbs.bootstrap` runs it in K1's place when HELM_TPU_MB_KERNEL=ts.
 
 Dispatch is by the device of the input tensor: on the CPU the plain
@@ -24,17 +26,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..fhe import ops, pbs
-from ..fhe.modring import NUM_PRIMES
-from ..fhe.ntt import MAX_LIMBS, from_i32_bits, mxu_tables, to_i32_bits
+from ..fhe import pbs
+from ..fhe.modring import NUM_PRIMES, get_tables
+from ..fhe.ntt import N1, mxu_tables, window_tables
 from . import build
-from .mb_pbs import check_inputs, mb_server_key
+from .mb_pbs import (K4_BUILDS, _narrow, check_build, check_inputs, chunk_freqs, mb_server_key, rotate_tiles,
+                     tiled_bsk)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U32P = ctypes.POINTER(ctypes.c_uint32)
-_ARGTYPES = [_P] * 12 + [_U32P, _U32P] + [_I] * 9 + [_P]
-_FOUR_STEP_ARGTYPES = [_P, _P, _I, _I, _I] + [_P] * 6 + [_U32P, _U32P, _P]
+_FOUR_STEP_ARGTYPES = [_P, _P, _I, _I, _I] + [_P] * 5 + [_U32P, _P, _P]
 
 
 def b_fragments(w_limbs: np.ndarray) -> np.ndarray:
@@ -58,38 +60,57 @@ def b_fragments(w_limbs: np.ndarray) -> np.ndarray:
 
 @dataclass(frozen=True, eq=False)
 class TsKernelKey:
-    """K4's view of one server key: the BSK in the four-step frequency
-    order, prime-outermost, [n/g, NP, 2^g-1, rows, k+1, N], so that the
-    block of (gate tile, prime) reads one contiguous slab per group; the
-    transform's tables; and ef at the four-step positions."""
+    """K4's view of one server key beyond `mb_server_key`'s: the BSK chunked
+    per step and prime as K1's (`mb_pbs.tiled_bsk`, i16 at PRIMES_512) in
+    the four-step frequency order; the N2-point matrices as the kernel's
+    B fragments of their two-limb window split (`ntt.window_tables`, each
+    matrix of p = 65537 scaled by its `scale` c); the twists as (w, w_sh)
+    pairs at index fA_s N2 + jB; the 8-point stages' twiddle pairs; ef4,
+    2 bitrev(f) + 1 of the standard frequency at four-step position f; and
+    `ts_consts`, per prime the data's limb count and the recombination
+    constants 256^s c^-1 mod p of each direction (on the device: each
+    block reads its prime's row)."""
 
-    bsk: torch.Tensor  # i32 bit patterns
-    bfwd: torch.Tensor  # i8 [NP, 3, Kp/32, N2/8, 32, 8]
+    bsk: torch.Tensor  # [n/g, NP, N/cf, 2^g-1, rows, k+1, cf] i16 or i32
+    bfwd: torch.Tensor  # i8 [NP, 2, Kp/32, N2/8, 32, 8]
     binv: torch.Tensor
-    tw: torch.Tensor  # i32 [NP, N1, N2] each
-    tw_sh: torch.Tensor
+    twf: torch.Tensor  # i32 [NP, N, 2]
     twi: torch.Tensor
-    twi_sh: torch.Tensor
+    stw: torch.Tensor  # i32 [NP, 16, 2]: forward stages at 1..7, inverse at 9..15
     ef4: torch.Tensor  # i32 [N]
-    ts_consts: ctypes.Array  # u32: stage twiddles, limb counts, 256^s mod p
+    scale: tuple  # (c of the forward matrix, c of the inverse) per prime
+    ts_consts: torch.Tensor  # i32 [NP, 9]: limbs, forward then inverse constants
 
 
 _layouts: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def transform_tables(N: int, device) -> dict:
-    """The four-step transform's tables as the kernel takes them."""
-    t = mxu_tables(N)
-    i32 = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64)).to(torch.int32).to(device)  # noqa: E731
-    consts = [np.asarray(t[k]).ravel() for k in ("stage_tw", "stage_tw_sh", "istage_tw", "istage_tw_sh")]
-    consts.append(np.asarray(t["limbs"]))
-    consts.append(np.array([[pow(256, s, p) for s in range(2 * MAX_LIMBS - 1)] for p in t["primes"]]).ravel())
-    vals = [int(v) for v in np.concatenate(consts)]
+    """The four-step transform's tables as the kernel takes them: the B
+    fragments of the window limbs, the twist pairs, the 8-point stages'
+    pairs (the standard transform's first three stages: psi_rev[1..7] and
+    psi_inv_rev[1..7], `fhe/ntt.py` `mxu_tables` stage_tw in the register
+    pass's order), the scales and `ts_consts`."""
+    t, w, tab = mxu_tables(N), window_tables(N), get_tables(N)
+
+    def i32(a):
+        return torch.from_numpy(np.asarray(a).astype(np.int64)).to(torch.int32).to(device)
+
+    def pairs(x, x_sh):
+        return i32(np.stack([x.reshape(NUM_PRIMES, N), x_sh.reshape(NUM_PRIMES, N)], axis=-1))
+
+    stw = np.zeros((NUM_PRIMES, 16, 2), np.int64)
+    stw[:, 1:N1] = np.stack([tab.psi_rev[:, 1:N1], tab.psi_rev_sh[:, 1:N1]], axis=-1)
+    stw[:, N1 + 1:] = np.stack([tab.psi_inv_rev[:, 1:N1], tab.psi_inv_rev_sh[:, 1:N1]], axis=-1)
+    consts = np.concatenate([t["limbs"][:, None], w["w2_rc"], w["w2i_rc"]], axis=1)
     return {
-        "bfwd": torch.from_numpy(b_fragments(t["w2_limbs"])).to(device),
-        "binv": torch.from_numpy(b_fragments(t["w2i_limbs"])).to(device),
-        **{k: i32(t[k]) for k in ("tw", "tw_sh", "twi", "twi_sh")},
-        "ts_consts": (ctypes.c_uint32 * len(vals))(*vals),
+        "bfwd": torch.from_numpy(b_fragments(w["w2_win"])).to(device),
+        "binv": torch.from_numpy(b_fragments(w["w2i_win"])).to(device),
+        "twf": pairs(t["tw"], t["tw_sh"]),
+        "twi": pairs(t["twi"], t["twi_sh"]),
+        "stw": i32(stw),
+        "scale": tuple(zip(w["w2_scale"].tolist(), w["w2i_scale"].tolist())),
+        "ts_consts": i32(consts),
     }
 
 
@@ -104,7 +125,7 @@ def ts_server_key(dsk: pbs.DeviceServerKey) -> TsKernelKey:
     perm = torch.from_numpy(mxu_tables(p.N)["perm_from_std"]).to(dsk.device)
     _, ef = pbs.power_tables(p.N, str(dsk.device))
     key = TsKernelKey(
-        bsk=dsk.bsk_ntt[..., perm].permute(0, 4, 1, 2, 3, 5).contiguous(),
+        bsk=tiled_bsk(dsk.bsk_ntt[..., perm], p, chunk_freqs(p), _narrow(p)),
         ef4=ef[perm].to(torch.int32).contiguous(),
         **transform_tables(p.N, dsk.device),
     )
@@ -131,26 +152,13 @@ def blind_rotate_ts(
     if lwe_in.device.type != "cuda":
         raise NotImplementedError(f"blind_rotate_ts: no kernel for {lwe_in.device}")
     check_inputs(dsk, lwe_in, testv, "blind_rotate_ts")
-    n, N, k = p.n, p.N, p.k
-    G = lwe_in.shape[0]
-    key = mb_server_key(dsk)  # power table, Garner constants
+    check_build(p, K4_BUILDS, "K4")
     tkey = ts_server_key(dsk)
-    acc = to_i32_bits(pbs.initial_acc(p, lwe_in, testv)).contiguous()
-    abar = ops.mod_switch(lwe_in[:, :n], N).to(torch.int32).contiguous()
-    res = torch.empty((G, k + 1, NUM_PRIMES, N), dtype=torch.int32, device=lwe_in.device)
-    (mbl, mlv), (bl, lv) = p.component_gadgets[0], p.component_gadgets[-1]
-    rc = build.entry("blind_rotate_ts", _ARGTYPES)(
-        acc.data_ptr(), abar.data_ptr(), tkey.bsk.data_ptr(),
-        tkey.bfwd.data_ptr(), tkey.binv.data_ptr(),
-        tkey.tw.data_ptr(), tkey.tw_sh.data_ptr(), tkey.twi.data_ptr(), tkey.twi_sh.data_ptr(),
-        key.pw.data_ptr(), tkey.ef4.data_ptr(), res.data_ptr(),
-        key.consts, tkey.ts_consts,
-        G, n, N, k, p.grouping, mbl, mlv, bl, lv,
-        torch.cuda.current_stream(lwe_in.device).cuda_stream,
-    )
-    build.check(rc, "helm_blind_rotate_ts")
+    extra = [(_P, tkey.bfwd.data_ptr()), (_P, tkey.binv.data_ptr()), (_P, tkey.stw.data_ptr()),
+             (_P, tkey.ef4.data_ptr()), (_P, tkey.ts_consts.data_ptr())]
+    out = rotate_tiles("blind_rotate_ts", dsk, lwe_in, testv, extra, (tkey.bsk, tkey.twf, tkey.twi))
     blind_rotate_ts.launches += 1
-    return from_i32_bits(acc)
+    return out
 
 
 blind_rotate_ts.launches = 0
@@ -159,8 +167,10 @@ blind_rotate_ts.launches = 0
 def four_step_kernel(dsk: pbs.DeviceServerKey, x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """K4's four-step transforms alone, on the card: residues [R, NP, N]
     -> `ntt.ntt_fwd_four_step(x)` (or, with `inverse`,
-    `ntt.ntt_inv_four_step(x)`). A check of the kernel's transform stages
-    and tensor-core products apart from the rotation."""
+    `ntt.ntt_inv_four_step(x)`), by the device functions of the rotation
+    (csrc/rotate_tiles.cuh FourStepTC). A check of the 8-point stages,
+    twists, limb splits and tensor-core products apart from the
+    rotation."""
     if x.device.type != "cuda":
         raise NotImplementedError(f"four_step_kernel: no kernel for {x.device}")
     N = dsk.params.N
@@ -171,9 +181,8 @@ def four_step_kernel(dsk: pbs.DeviceServerKey, x: torch.Tensor, inverse: bool = 
     out = torch.empty_like(xin)
     rc = build.entry("blind_rotate_ts", _FOUR_STEP_ARGTYPES, "helm_ts_four_step")(
         xin.data_ptr(), out.data_ptr(), int(inverse), x.shape[0], N,
-        tkey.bfwd.data_ptr(), tkey.binv.data_ptr(),
-        tkey.tw.data_ptr(), tkey.tw_sh.data_ptr(), tkey.twi.data_ptr(), tkey.twi_sh.data_ptr(),
-        mb_server_key(dsk).consts, tkey.ts_consts,
+        tkey.bfwd.data_ptr(), tkey.binv.data_ptr(), tkey.twf.data_ptr(), tkey.twi.data_ptr(),
+        tkey.stw.data_ptr(), mb_server_key(dsk).consts, tkey.ts_consts.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(rc, "helm_ts_four_step")

@@ -1,11 +1,12 @@
-"""Where K1's time goes inside one rotation, by phase, on the card.
+"""Where K1's (or K4's) time goes inside one rotation, by phase, on the card.
 
-Builds an instrumented copy of `csrc/blind_rotate_mb.cu`, with the kernel
-body it includes (`csrc/rotate_tiles.cuh`) inlined and clock64() read by
-thread 0 of block (0, 0) at each barrier of the group loop (the kernel
-itself is unchanged), into `build/k1_phases/`, runs one rotation per width
-through `mb_pbs.blind_rotate_mb` with that build, and prints each phase's
-share of the clocks per group:
+Builds an instrumented copy of `csrc/blind_rotate_mb.cu` (K1) or
+`csrc/blind_rotate_ts.cu` (K4), with the kernel body it includes
+(`csrc/rotate_tiles.cuh`) inlined and clock64() read by thread 0 of block
+(0, 0) at each barrier of the group loop (the kernel itself is unchanged;
+the marks sit in the branches of the body that the kernel takes), into
+`build/k1_phases/`, runs one rotation per width through its wrapper with
+that build, and prints each phase's share of the clocks per group. K1:
 
     decompose+pass1  the decomposition fused with the first forward pass
     fwd passes       the other forward register passes
@@ -16,7 +17,13 @@ share of the clocks per group:
     garner           the quarter's Garner and accumulate
     cluster sync 2   waiting for the other quarters
 
-    python -m helm_tpu_torch.tools.k1_phases
+K4 (FourStepTC): the same, with "decompose+stages+limbs" (the
+decomposition, the 8-point stages, the twist and the limb split), "fwd
+product" (the N2-point product on the tensor cores) and "inv product"
+(the inverse product, the inverse twist and 8-point stages) in place of
+the passes.
+
+    python -m helm_tpu_torch.tools.k1_phases [mb|ts]
 
 at the sets and widths of `WIDTHS`.
 
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import subprocess
+import sys
 from pathlib import Path
 
 import torch
@@ -35,36 +43,37 @@ import torch
 from .. import params as P
 from ..fhe import lwe, pbs
 from ..fhe.server_key import gen_server_key
-from ..ops import build, mb_pbs
+from ..ops import build, mb_pbs, ts_pbs
 from .mb_sweep import inputs
 
 OUT_DIR = Path(__file__).resolve().parents[2] / "build" / "k1_phases"
-PHASES = ("decompose+pass1", "fwd passes", "products", "inv passes", "cluster sync 1", "garner",
-          "cluster sync 2")
+#: the phases' names per kernel (counters 0-6)
+PHASES = {
+    "mb": ("decompose+pass1", "fwd passes", "products", "inv passes", "cluster sync 1", "garner",
+           "cluster sync 2"),
+    "ts": ("decompose+stages+limbs", "fwd product", "products", "inv product", "cluster sync 1",
+           "garner", "cluster sync 2"),
+}
 #: (set, widths) the tool runs
 WIDTHS = (("GATES_128_K3", (8, 64, 1024)), ("LUT_128_K2", (2, 256)), ("ARITH_128_MB2", (8, 1024)))
 
-#: (anchor in the kernel body, text inserted after it); counters 0-6
-#: are the phases, 9 the ring waits, 10 thread 0's products, 11 its chunk
-#: barrier waits
-_MARKS = (
-    ("cluster.sync();  // every block's quarter is in place\n",
-     "  const bool rec_ = threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0;\n"
-     "  long long tp_ = clock64(), tw_ = 0;\n"
-     "#define MARK_(n) if (rec_) { const long long t_ = clock64(); k1_clk[n] += t_ - tp_; tp_ = t_; }\n"),
-    ("    __syncthreads();\n    ntt_passes<false>(rows, S.rows * gt, gt, ng, 1, twf, sw, p);\n",
-     "    MARK_(1)\n"),
+_SETUP = ("cluster.sync();  // every block's quarter is in place\n",
+          "  const bool rec_ = threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0;\n"
+          "  long long tp_ = clock64(), tw_ = 0;\n"
+          "#define MARK_(n) if (rec_) { const long long t_ = clock64(); k1_clk[n] += t_ - tp_; tp_ = t_; }\n")
+#: the marks of the products (counters 9: the ring waits, 10: thread 0's
+#: products, 11: its chunk barrier waits) and of the epilogue, the same for
+#: both kernels: (anchor, text inserted after it) and (anchor, text inserted
+#: before it)
+_SHARED_AFTER = (
     ("      mbar_wait(&bar[st], (q / STAGES) & 1);\n",
      "      if (rec_) { k1_clk[9] += clock64() - tw_; tw_ = clock64(); }\n"),
     ("      __syncthreads();  // the chunk's gadget rows are read; its ring stage is free\n",
      "      if (rec_) { k1_clk[11] += clock64() - tw_; }\n"),
-    ("    ntt_passes<true>(rows, kp1 * gt, gt, ng, 0, twi, sw, p);\n", "    MARK_(3)\n"),
     ("    cluster.sync();  // every prime's residues are in its block\n", "    MARK_(4)\n"),
     ("    cluster.sync();  // the quarters are updated, and no peer reads our rows\n", "    MARK_(6)\n"),
 )
-#: (anchor, text inserted before it)
-_BEFORE = (
-    ("    ntt_passes<false>(rows, S.rows * gt, gt, ng, 1, twf, sw, p);\n", "    MARK_(0)\n"),
+_SHARED_BEFORE = (
     ("      mbar_wait(&bar[st], (q / STAGES) & 1);\n", "      if (rec_) tw_ = clock64();\n"),
     ("      __syncthreads();  // the chunk's gadget rows are read; its ring stage is free\n",
      "      if (rec_) { k1_clk[10] += clock64() - tw_; tw_ = clock64(); }\n"),
@@ -72,26 +81,42 @@ _BEFORE = (
     ("    cluster.sync();  // the quarters are updated, and no peer reads our rows\n",
      "    __syncthreads();\n    MARK_(5)\n"),
 )
+#: per kernel: (anchor, text inserted after it), (anchor, text inserted before it)
+_MARKS = {
+    "mb": (
+        (("    ntt_passes<false>(rows, S.rows * gt, gt, ng, 1, twf, sw, p);\n", "    MARK_(1)\n"),
+         ("    ntt_passes<true>(rows, kp1 * gt, gt, ng, 0, twi, sw, p);\n", "    MARK_(3)\n")),
+        (("    ntt_passes<false>(rows, S.rows * gt, gt, ng, 1, twf, sw, p);\n", "    MARK_(0)\n"),),
+    ),
+    "ts": (
+        (("    if constexpr (Xf::kTensor) {  // the N2-point stage on the tensor cores -> F, "
+          "four-step order\n", "      MARK_(0)\n"),),
+        (("\n    // 2. the products, one BSK chunk at a time\n", "    MARK_(1)\n"),
+         ("    cluster.sync();  // every prime's residues are in its block\n", "    MARK_(3)\n")),
+    ),
+}
 
 
-def instrumented_source() -> str:
-    """K1's source with the kernel body inlined and the phase counters in
-    it; raises if an anchor has gone from the body."""
+def instrumented_source(kernel: str = "mb") -> str:
+    """The kernel file's source (K1: mb, K4: ts) with the kernel body
+    inlined and the phase counters in it; raises if an anchor has gone
+    from the body."""
     src = (build.CSRC / "rotate_tiles.cuh").read_text().replace("#pragma once\n", "")
-    for anchor, text in _MARKS:
+    after, before = _MARKS[kernel]
+    for anchor, text in (_SETUP, *_SHARED_AFTER, *after):
         if src.count(anchor) != 1:
             raise RuntimeError(f"k1_phases: anchor not found once: {anchor!r}")
         src = src.replace(anchor, anchor + text)
-    for anchor, text in _BEFORE:
+    for anchor, text in (*_SHARED_BEFORE, *before):
         if src.count(anchor) != 1:
             raise RuntimeError(f"k1_phases: anchor not found once: {anchor!r}")
         src = src.replace(anchor, text + anchor)
     src = src.replace("namespace {\n", "__device__ unsigned long long k1_clk[16];\nnamespace {\n", 1)
-    k1 = (build.CSRC / "blind_rotate_mb.cu").read_text()
+    body = (build.CSRC / f"blind_rotate_{kernel}.cu").read_text()
     include = '#include "rotate_tiles.cuh"\n'
-    if k1.count(include) != 1:
-        raise RuntimeError(f"k1_phases: {include!r} not found once in blind_rotate_mb.cu")
-    return k1.replace(include, src) + (
+    if body.count(include) != 1:
+        raise RuntimeError(f"k1_phases: {include!r} not found once in blind_rotate_{kernel}.cu")
+    return body.replace(include, src) + (
         '\nextern "C" int helm_k1_clocks(unsigned long long* out, int reset) {\n'
         "  unsigned long long z[16] = {0};\n"
         "  return (int)(reset ? cudaMemcpyToSymbol(k1_clk, z, sizeof(z))\n"
@@ -99,45 +124,55 @@ def instrumented_source() -> str:
     )
 
 
-def _instrumented_library() -> ctypes.CDLL:
+def _instrumented_library(kernel: str) -> ctypes.CDLL:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    cu = OUT_DIR / "blind_rotate_mb.cu"
-    cu.write_text(instrumented_source())
-    so = OUT_DIR / "libk1_phases.so"
+    cu = OUT_DIR / f"blind_rotate_{kernel}.cu"
+    cu.write_text(instrumented_source(kernel))
+    so = OUT_DIR / f"libk1_phases_{kernel}.so"
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(so), str(cu)],
                    check=True)
     return ctypes.CDLL(str(so))
 
 
-def main() -> int:
-    lib = _instrumented_library()
-    rotate, slots = lib.helm_blind_rotate_mb, lib.helm_blind_rotate_mb_clusters
-    rotate.argtypes, rotate.restype = mb_pbs._ARGTYPES, ctypes.c_int
+def main(argv=None) -> int:
+    kernel = (argv if argv is not None else sys.argv[1:] or ["mb"])[0]
+    name = f"blind_rotate_{kernel}"
+    wrapper = {"mb": mb_pbs.blind_rotate_mb, "ts": ts_pbs.blind_rotate_ts}[kernel]
+    lib = _instrumented_library(kernel)
+    rotate, slots = getattr(lib, f"helm_{name}"), getattr(lib, f"helm_{name}_clusters")
     slots.argtypes, slots.restype = mb_pbs._SLOT_ARGTYPES, ctypes.c_int
     entry = build.entry
-    build.entry = lambda name, argtypes, symbol=None: (
-        (slots if symbol else rotate) if name == "blind_rotate_mb" else entry(name, argtypes, symbol)
-    )
+
+    def patched(name_, argtypes, symbol=None):
+        if name_ != name:
+            return entry(name_, argtypes, symbol)
+        if symbol:
+            return slots
+        if rotate.argtypes is None:
+            rotate.argtypes, rotate.restype = argtypes, ctypes.c_int
+        return rotate
+
+    build.entry = patched
     clk = (ctypes.c_ulonglong * 16)()
-    for name, widths in WIDTHS:
-        p = getattr(P, name)
+    for set_name, widths in WIDTHS:
+        p = getattr(P, set_name)
         ck = lwe.keygen(p, 2024)
         dsk = pbs.DeviceServerKey.from_host(gen_server_key(ck, "cuda"), "cuda")
         for G in widths:
             x, tv = inputs(ck, G, "cuda")
-            mb_pbs.blind_rotate_mb(dsk, x, tv)
+            wrapper(dsk, x, tv)
             torch.cuda.synchronize()
             lib.helm_k1_clocks(clk, 1)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            mb_pbs.blind_rotate_mb(dsk, x, tv)
+            wrapper(dsk, x, tv)
             end.record()
             torch.cuda.synchronize()
             lib.helm_k1_clocks(clk, 0)
-            total = sum(clk[i] for i in range(len(PHASES)))
-            t = mb_pbs.plan_for(dsk, G)
-            shares = ", ".join(f"{n} {100 * clk[i] / total:.1f}%" for i, n in enumerate(PHASES))
-            print(f"[k1_phases] {p.name} G={G} gt={t.gt}: {start.elapsed_time(end):.3f} ms, "
+            total = sum(clk[i] for i in range(7))
+            t = mb_pbs.plan_for(dsk, G, name)
+            shares = ", ".join(f"{n} {100 * clk[i] / total:.1f}%" for i, n in enumerate(PHASES[kernel]))
+            print(f"[k1_phases] {kernel} {p.name} G={G} gt={t.gt}: {start.elapsed_time(end):.3f} ms, "
                   f"{total / (p.n // p.grouping):.0f} clocks per group: {shares}; of which ring waits "
                   f"{100 * clk[9] / total:.1f}%, thread 0's products {100 * clk[10] / total:.1f}%, its chunk "
                   f"barrier waits {100 * clk[11] / total:.1f}%", flush=True)

@@ -1,15 +1,18 @@
-"""A/B of the tile kernels (K1, K6, K2) between two checkouts, on the card.
+"""A/B of the blind-rotation kernels between two checkouts, on the card.
 
-    python3 helm_tpu_torch/tools/kernel_ab.py time <checkout> <label> [k1,k6,k2]
+    python3 helm_tpu_torch/tools/kernel_ab.py time <checkout> <label> [k1,k6,k2,k4,k3]
     python3 helm_tpu_torch/tools/kernel_ab.py sass <checkout A> <checkout B> <out dir>
 
-`time` imports the port and `chip_smoke.py` from <checkout>, builds its
-three tile kernels there, and times each wrapper by CUDA events (one
-untimed call, then the mean of three) at the full-size sets and widths of
-chip_smoke.py's phases k1, k6 and k2, on the same inputs (no plain
-versions). It prints one JSON line per width with a digest of the output
-words, so that two checkouts' words can be compared. Run it once per
-checkout, each in its own process, in turns (A, B, B, A) in one call.
+`time` imports the port and `chip_smoke.py` from <checkout>, builds the
+kernels named (default k1,k6,k2) there, and times each wrapper by CUDA
+events (one untimed call, then the mean of three) at the full-size sets
+and widths of chip_smoke.py's phases k1, k6, k2, k4 and k3 (K4 and K3 at
+K1's), on the same inputs (no plain versions). It prints one JSON line per
+width with a digest of the output words, so that two checkouts' words can
+be compared; each width's inputs are made once, so K1, K6, K4 and K3 (one
+function) give one digest. Run it once per checkout, each in its own process, in
+turns (A, B, B, A) in one call; both checkouts need the wrappers of the
+kernels named, with the signatures of this one.
 
 `sass` compiles K1 (`csrc/blind_rotate_mb.cu`) of both checkouts to
 cubins with nvcc, writes their `cuobjdump -sass` into <out dir>, and
@@ -42,10 +45,12 @@ def time_checkout(root: str, label: str, only) -> None:
     from helm_tpu_torch import params as P
     from helm_tpu_torch.fhe import pbs
     from helm_tpu_torch.fhe.ntt import words
-    from helm_tpu_torch.ops import build, mb_pbs, ps_pbs, sb_pbs
+    from helm_tpu_torch.ops import build, gm_pbs, mb_pbs, ps_pbs, sb_pbs, ts_pbs
 
+    sources = {"k1": "blind_rotate_mb", "k6": "blind_rotate_ps", "k2": "blind_rotate_sb",
+               "k4": "blind_rotate_ts", "k3": "blind_rotate_gm"}
     t0 = time.perf_counter()
-    build.load_all(["blind_rotate_mb", "blind_rotate_ps", "blind_rotate_sb"])
+    build.load_all([sources[k] for k in only])
     print(f"[{label}] built in {time.perf_counter() - t0:.1f} s", flush=True)
     smoke = cs.Smoke("cuda")
     multibit = ((P.GATES_128_K3, 2024, (8, 16, 32, 37, 64, 128, 200, 256, 1024), False),
@@ -53,21 +58,29 @@ def time_checkout(root: str, label: str, only) -> None:
     single = ((P.GATES_TPU, 2026, (1, 2, 4, 8, 16, 32, 37, 64, 128, 256, 1024), False),
               (P.GATES_PARAMS, 2027, (37,), False), (P.LUT_PARAMS, 2028, (2, 37), True))
     runs = (("k1", mb_pbs.blind_rotate_mb, multibit), ("k6", ps_pbs.blind_rotate_ps, multibit),
-            ("k2", sb_pbs.blind_rotate_sb, single))
+            ("k2", sb_pbs.blind_rotate_sb, single), ("k4", ts_pbs.blind_rotate_ts, multibit),
+            ("k3", gm_pbs.blind_rotate_gm, multibit))
+    inputs = {}  # by (set, G): made once, so that every kernel takes the same words
+
+    def inputs_for(params, ck, G, per_gate):
+        if (params.name, G) not in inputs:
+            lin, _ = cs._ands(ck, G, 100 + G)  # chip_smoke's inputs for this width
+            if per_gate:
+                rng = np.random.default_rng(G)
+                tv = words(rng.integers(0, 1 << 32, size=(G, params.N), dtype=np.uint64)
+                           .astype(np.uint32), "cuda")
+            else:
+                tv = words(pbs.gates_test_poly(params), "cuda")
+            inputs[params.name, G] = (words(lin, "cuda"), tv)
+        return inputs[params.name, G]
+
     for kname, fn, cases in runs:
         if kname not in only:
             continue
         for params, seed, gs, per_gate in cases:
             ck, _, dsk = smoke.keys_for(params, seed)
             for G in gs:
-                lin, _ = cs._ands(ck, G, 100 + G)  # chip_smoke's inputs for this width
-                x = words(lin, "cuda")
-                if per_gate:
-                    rng = np.random.default_rng(G)
-                    tv = words(rng.integers(0, 1 << 32, size=(G, params.N), dtype=np.uint64)
-                               .astype(np.uint32), "cuda")
-                else:
-                    tv = words(pbs.gates_test_poly(params), "cuda")
+                x, tv = inputs_for(params, ck, G, per_gate)
                 ms, out = cs._time_ms(lambda: fn(dsk, x, tv), reps=3)
                 digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
                 print(json.dumps({"tree": label, "kernel": kname, "set": params.name, "G": G,

@@ -7,7 +7,10 @@ helm_tpu.
 - `pbs.blind_rotate_ladder` against `pbs_jnp.blind_rotate_multibit`, word
   for word, at TEST_PARAMS_K3 (g=2, per-gate test polynomials) and
   TEST_PARAMS_MB4 (g=4).
-- `gm_pbs.gm_server_key` and the wrapper's dispatch by device.
+- `gm_pbs.gm_server_key` (the ladder's tables alone) and the wrapper's
+  dispatch by device. The kernel's order of operations with the Ladder
+  source is held against `blind_rotate_ladder` in
+  `tests/test_torch_mb_tiles.py`.
 - `helm_tpu_torch.tools.mb_sweep`: the environment knobs and arguments of
   `tools/mb_sweep.py`, a CPU sweep with its key cache, and the refusals.
 """
@@ -80,10 +83,13 @@ def test_blind_rotate_ladder_matches_multibit(keys, name, G):
 
 
 def test_gm_server_key(keys):
+    """K3's key holds the ladder's tables and nothing BSK-sized: it reads
+    K1's chunked BSK (`mb_server_key(dsk).bsk_k1`), and the TPU kernel's
+    Shoup companion of the BSK is gone."""
     _, _, tdsk = keys["k3"]
     key = gm_pbs.gm_server_key(tdsk)
     assert gm_pbs.gm_server_key(tdsk) is key  # cached per key
-    assert torch.equal(key.bsk_sh, tdsk.bsk_ntt_sh) and key.bsk_sh.is_contiguous()
+    assert sorted(vars(key)) == ["mono", "mono_sh"]
     mono, mono_sh = pbs.monomial_tables(tdsk.params.N)
     assert torch.equal(key.mono.long(), torch.from_numpy(mono.astype(np.int64)))
     assert torch.equal(key.mono_sh.long(), torch.from_numpy(mono_sh.astype(np.int64)))

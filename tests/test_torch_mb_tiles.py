@@ -1,12 +1,13 @@
-"""The host-side plan and layouts of K1, K6 and K2 (one kernel body,
-`csrc/rotate_tiles.cuh`), and a plain model of the body's order of
+"""The host-side plan and layouts of K1, K6, K2, K4 and K3 (one kernel
+body, `csrc/rotate_tiles.cuh`), and a plain model of the body's order of
 operations, against helm_tpu_torch's plain versions and helm_tpu.
 
-The CUDA kernels (`csrc/blind_rotate_{mb,ps,sb}.cu`) cannot run here;
-what they read can:
+The CUDA kernels (`csrc/blind_rotate_{mb,ps,sb,ts,gm}.cu`) cannot run
+here; what they read can:
 - `mb_pbs.tile_plan`: every tile fits the shared memory a block may take
   and the tiles cover every gate exactly once, at the sets and widths the
-  kernels run (multi-bit sets for K1 and K6, grouping-1 sets for K2), and
+  kernels run (multi-bit sets for K1 and K6, grouping-1 sets for K2, every
+  multi-bit set for K4, with the limb matrices it stages, and K3), and
   `cluster_slots` holds it to the kernel's own layout;
 - `mb_pbs.tiled_bsk`: the chunked BSK layout inverts to `dsk.bsk_ntt`, at
   grouping 1 too; `kernel_layouts` builds it only for a kernel that reads
@@ -23,8 +24,12 @@ what they read can:
   the bare accumulator and Garner (K1) and with the CRT fold (K6) it
   equals `pbs.blind_rotate_multibit`, `pbs.blind_rotate_prime_split` and
   `pbs_jnp.blind_rotate_multibit`; with the rotated difference at
-  grouping 1 (K2) it equals `pbs.blind_rotate` and `pbs_jnp.blind_rotate`,
-  word for word.
+  grouping 1 (K2) it equals `pbs.blind_rotate` and `pbs_jnp.blind_rotate`;
+  with the four-step transform (K4's FourStepTC) it equals
+  `pbs.blind_rotate_transposed`, and with the bit-ladder monomials (K3's
+  Ladder) `pbs.blind_rotate_ladder`, both `pbs.blind_rotate_multibit` and
+  the jnp rotation too, at a g = 2 set, a g = 4 set and N = 2048 (p =
+  65537), word for word.
 """
 
 import dataclasses
@@ -43,13 +48,16 @@ from helm_tpu_torch.fhe import ntt, ops, pbs
 from helm_tpu_torch.fhe.modring import get_tables, primes_for
 from helm_tpu_torch.fhe.ntt import to_host, words
 from helm_tpu_torch.fhe.server_key import server_key_from_reference
-from helm_tpu_torch.ops import mb_pbs
+from helm_tpu_torch.ops import mb_pbs, ts_pbs
 
 #: the tiny k=3 grouping-1 set of chip_smoke.py's phase k2
 RK3_G1 = dataclasses.replace(RP.TEST_PARAMS_K3, name="test_tiny_k3_g1", grouping=1)
+#: a tiny g = 2 set at N = 2048 (PRIMES, with 65537)
+N2048 = dataclasses.replace(RP.TEST_PARAMS_MB, name="test_tiny_mb2_n2048", N=2048)
 SETS = {
     "k3": (RP.TEST_PARAMS_K3, 51), "mb4": (RP.TEST_PARAMS_MB4, 52),
     "g1": (RP.TEST_PARAMS, 53), "lut": (RP.TEST_PARAMS_LUT, 54), "k3_g1": (RK3_G1, 55),
+    "n2048": (N2048, 56),
 }
 
 #: the sets K1 and K6 run (phases k1 and k6 of chip_smoke.py), and those K2
@@ -99,6 +107,44 @@ def test_tile_plan_fits_and_covers(p, G):
     assert p.N % plan.chunk == 0 and plan.chunk >= 32
     assert words * (2 if plan.narrow else 4) % 16 == 0
     assert (p.k + 1) * plan.chunk <= mb_pbs.THREADS
+
+
+#: every multi-bit set of params.py, and the tiny ones the card checks
+MULTIBIT_SETS = [p for p in vars(P).values() if isinstance(p, P.TfheParams) and p.grouping > 1] + [
+    dataclasses.replace(P.TEST_PARAMS_K3, name="test_tiny_k3_n1024", N=1024),
+    dataclasses.replace(P.TEST_PARAMS_MB, name="test_tiny_mb2_n2048", N=2048),
+]
+
+
+@pytest.mark.parametrize("kernel", ["blind_rotate_ts", "blind_rotate_gm"])
+@pytest.mark.parametrize("p", MULTIBIT_SETS, ids=lambda p: p.name)
+@pytest.mark.parametrize("G", [1, 8, 37, 1024])
+def test_k4_and_k3_plans_fit_and_cover(kernel, p, G):
+    """K4's and K3's tiles fit the shared memory a block may take at every
+    multi-bit set and cover every gate once. K4's region (limb planes, and
+    the limb matrices it stages) is on top of the body's, and the plan
+    stages the most directions that fit: both at N = 512, one or both at
+    N = 1024, none at N = 2048; K3's layout is K1's plus the step's
+    monomials, [gt, g, N] u16."""
+    plan = mb_pbs.tile_plan(p, G, h100_slots, kernel)
+    assert plan.smem <= mb_pbs.SMEM_LIMIT and plan.smem == mb_pbs.smem_bytes(p, plan.gt, plan.chunk, kernel)
+    assert plan.gt & (plan.gt - 1) == 0 and 1 <= plan.gt <= mb_pbs.MAX_TILE
+    covered = np.zeros(G, np.int64)
+    for t in range(plan.tiles):
+        covered[t * plan.gt : min(G, (t + 1) * plan.gt)] += 1
+    assert (covered == 1).all() and (plan.tiles - 1) * plan.gt < G
+    k1 = mb_pbs.smem_bytes(p, plan.gt, plan.chunk)
+    if kernel == "blind_rotate_gm":
+        assert plan.staged == 0 and plan.smem == k1 + plan.gt * p.grouping * p.N * 2
+        return
+    assert plan.smem == k1 + mb_pbs.tc_bytes(p, plan.gt, plan.staged)
+    assert plan.staged == 2 or k1 + mb_pbs.tc_bytes(p, plan.gt, plan.staged + 1) > mb_pbs.SMEM_LIMIT
+    if p.N == 512:
+        assert plan.staged == 2
+    if p.N == 2048:
+        assert plan.staged == 0
+    if p.N == 1024 and plan.gt == 1:
+        assert plan.staged >= 1
 
 
 @pytest.mark.parametrize("G,gt", [(2, 1), (8, 1), (32, 2), (37, 2), (64, 4), (128, 2), (200, 8), (256, 2), (1024, 8)])
@@ -257,29 +303,124 @@ def _crt_fold(r4, tab):
     return (total - kq * c.prod_mod) & ntt.M32
 
 
-def _model(dsk, lwe_in, testv, words=_acc_words, fold=_garner):
+def _radix8(v, tw, p, inverse):
+    """The 8-point stages of the four-step transform on axis -2 of v (int64,
+    size 8) with the kernel's index formulas: forward as pbs_common.cuh
+    fwd_radix<3>(v, stw, 0, 0, p), inverse as inv_radix<3>(v, stw + 8, 0,
+    0, 3, p); tw: this prime's stage pairs [16, 2] (forward at 1..7,
+    inverse at 9..15)."""
+    v = [v[..., k, :] for k in range(8)]
+    for r in range(3):
+        if inverse:
+            dist, h = 1 << r, 4 >> r
+            for q in range(4 >> r):
+                w = tw[8 + h + q]
+                for kk in range(dist):
+                    a = q * 2 * dist + kk
+                    u, t = v[a], v[a + dist]
+                    v[a] = ntt.add_mod(u, t, p)
+                    v[a + dist] = ntt.mul_shoup(ntt.sub_mod(u, t, p), w[0], w[1], p)
+        else:
+            half = 4 >> r
+            for q in range(1 << r):
+                w = tw[(1 << r) + q]
+                for kk in range(half):
+                    a = q * 2 * half + kk
+                    u, t = v[a], ntt.mul_shoup(v[a + half], w[0], w[1], p)
+                    v[a], v[a + half] = ntt.add_mod(u, t, p), ntt.sub_mod(u, t, p)
+    return torch.stack(v, dim=-2)
+
+
+def _tc_product(x, w_win, rc, p, nl):
+    """FourStepTC's N2-point product of rows x [.., N2] (residues mod p):
+    the data's balanced limbs (nl of them) against the matrix's two window
+    limbs w_win [2, N2, N2], limb pair by limb pair (float64 sums of int8
+    products: exact) into the shifts acc_s, recombined in the kernel's
+    arithmetic: off + sum_s (acc_s + 2^24) rc[s] with off = p 2^31 - 2^24
+    sum_s rc[s], below 2^64, mod p."""
+    a = ntt.split_limbs(ntt.balanced(x, p), nl)
+    acc = [0] * (nl + 1)
+    for la in range(nl):
+        for lw in range(2):
+            w = torch.from_numpy(w_win[lw].astype(np.float64))
+            acc[la + lw] = acc[la + lw] + (a[la].to(torch.float64) @ w).to(torch.int64)
+    rcs = [int(r) for r in rc[:nl + 1]]
+    v = (p << 31) - (sum(rcs) << 24)
+    for s, r in enumerate(rcs):
+        assert int((acc[s] + (1 << 24)).min()) > 0 and int((acc[s] + (1 << 24)).max()) < 1 << 25
+        v = v + (acc[s] + (1 << 24)) * r
+    assert int(v.max()) < 1 << 63
+    return torch.remainder(v, p)
+
+
+def _four_step_fwd(f, pi, p, tk, win):
+    """FourStepTC's forward transform of rows f [.., N] of prime pi: the
+    8-point stages (the body's first register pass), the twist, the
+    tensor-core product; out in the four-step frequency order."""
+    N = f.shape[-1]
+    v = _radix8(f.reshape(f.shape[:-1] + (8, N // 8)), tk.stw[pi].long(), p, False)
+    tw = tk.twf[pi].long().reshape(8, N // 8, 2)
+    v = ntt.mul_shoup(v, tw[..., 0], tw[..., 1], p)
+    return _tc_product(v, win["w2_win"][pi], win["w2_rc"][pi], p, ntt.limb_count(p)).reshape(f.shape)
+
+
+def _four_step_inv(s, pi, p, tk, win):
+    """FourStepTC's inverse of rows s [.., N] (four-step order) of prime pi:
+    the tensor-core product, the inverse twist, the inverse 8-point stages;
+    natural order out, N^-1 folded into the twist and the matrix."""
+    N = s.shape[-1]
+    v = _tc_product(s.reshape(s.shape[:-1] + (8, N // 8)), win["w2i_win"][pi], win["w2i_rc"][pi], p,
+                    ntt.limb_count(p))
+    tw = tk.twi[pi].long().reshape(8, N // 8, 2)
+    v = ntt.mul_shoup(v, tw[..., 0], tw[..., 1], p)
+    return _radix8(v, tk.stw[pi].long(), p, True).reshape(s.shape)
+
+
+def _ladder(a, f, pi, p, N):
+    """The Ladder source's NTT(X^a)[f] (csrc/rotate_tiles.cuh): the Shoup
+    product over the set bits b of a, lowest first, of T[b][f]
+    (`pbs.monomial_tables`); a [ng], f [cf] -> [ng, cf]."""
+    t, t_sh = (torch.from_numpy(x.astype(np.int64)) for x in pbs.monomial_tables(N))
+    m = torch.ones((a.shape[0], f.shape[0]), dtype=torch.int64)
+    for b in range(N.bit_length()):
+        on = ((a >> b) & 1).bool()[:, None]
+        m = torch.where(on, ntt.mul_shoup(m, t[b, pi, f], t_sh[b, pi, f], p), m)
+    return m
+
+
+def _model(dsk, lwe_in, testv, words=_acc_words, fold=_garner, transform="passes", mono="lookup"):
     """The kernel body's order of operations in plain torch: per tile of
     `tile_plan`, per step, per prime (the cluster's blocks) the
-    decomposition of the tile's `words` (`_acc_words`: K1, K6;
-    `_rotdiff_words`: K2), the forward pass NTTs, the products from the
+    decomposition of the tile's `words` (`_acc_words`: K1, K6, K4, K3;
+    `_rotdiff_words`: K2), the forward transform, the products from the
     chunked BSK (sum over rows first, in u32 where fits_u32 holds, then
     the P_v scale where the words are the bare accumulator), the inverse
-    passes; then the epilogue `fold` (`_garner`: K1, K2; `_crt_fold`: K6)
-    per coefficient quarter."""
+    transform; then the epilogue `fold` (`_garner`: K1, K2, K4, K3;
+    `_crt_fold`: K6) per coefficient quarter. `transform`: "passes" (the
+    register-pass NTTs; the epilogue scales by N^-1) or "four_step" (K4's
+    FourStepTC: `_four_step_fwd` / `_four_step_inv`, the BSK and the
+    monomials in the four-step frequency order); `mono`: "lookup" (the
+    power table) or "ladder" (K3's bit ladder, `_ladder`)."""
     p = dsk.params
     key = mb_pbs.mb_server_key(dsk)
     tab = dsk.tab
     N, k, g, n = p.N, p.k, p.grouping, p.n
     kp1, rows, nv1 = k + 1, p.gadget_rows, (1 << g) - 1
     subsets = words is _acc_words
+    four = transform == "four_step"
+    kernel = "blind_rotate_ts" if four else "blind_rotate_gm" if mono == "ladder" else "blind_rotate_mb"
     G = lwe_in.shape[0]
-    plan = mb_pbs.tile_plan(p, G, h100_slots)
+    plan = mb_pbs.tile_plan(p, G, h100_slots, kernel)
     primes = [int(x) for x in tab.primes]
     narrow = mb_pbs._narrow(p)
-    chunks = key.bsk_k1.to(torch.int64)  # [n/g, NP, N/cf, nv1, rows, kp1, cf]
-    cf = key.chunk
-    twf, twi = key.twf.to(torch.int64), key.twi.to(torch.int64)
     pw, ef = pbs.power_tables(N, "cpu")
+    if four:
+        tk, win = ts_pbs.ts_server_key(dsk), ntt.window_tables(N)
+        chunks, ef = tk.bsk.to(torch.int64), tk.ef4.long()
+    else:
+        chunks = key.bsk_k1.to(torch.int64)  # [n/g, NP, N/cf, nv1, rows, kp1, cf]
+        twf, twi = key.twf.to(torch.int64), key.twi.to(torch.int64)
+    cf = key.chunk
     abar = ops.mod_switch(lwe_in[:, :n], N)
     acc_all = pbs.initial_acc(p, lwe_in, testv)
     out = torch.empty_like(acc_all)
@@ -302,13 +443,17 @@ def _model(dsk, lwe_in, testv, words=_acc_words, fold=_garner):
                         d = d - carry * (1 << bl)
                         r = (r >> bl) + carry
                         f[row0 + lvl] = torch.remainder(d, q)
-                f = _pass_ntt(f, twf[pi], q, N, False)
+                f = _four_step_fwd(f, pi, q, tk, win) if four else _pass_ntt(f, twf[pi], q, N, False)
                 s = torch.empty((kp1, g1 - g0, N), dtype=torch.int64)
                 e = ef[None, :]
                 for ch in range(N // cf):
                     fs = slice(ch * cf, (ch + 1) * cf)
                     b = chunks[j, pi, ch]  # [nv1, rows, kp1, cf]
-                    d = [pw[pi][(abar[g0:g1, j * g + i, None] * e[:, fs]) % (2 * N)] - 1 for i in range(g)]
+                    a_i = [abar[g0:g1, j * g + i] for i in range(g)]
+                    if mono == "ladder":
+                        d = [_ladder(a, torch.arange(N)[fs], pi, q, N) - 1 for a in a_i]
+                    else:
+                        d = [pw[pi][(a[:, None] * e[:, fs]) % (2 * N)] - 1 for a in a_i]
                     pv = [None]
                     for v in range(1, nv1 + 1):
                         lo = (v & -v).bit_length() - 1
@@ -324,8 +469,11 @@ def _model(dsk, lwe_in, testv, words=_acc_words, fold=_garner):
                         if narrow:
                             assert int(acc_s.max()) < 1 << 32
                         s[c, :, fs] = acc_s % q
-                s = _pass_ntt(s, twi[pi], q, N, True)
-                res.append(ntt.mul_shoup(s, int(tab.n_inv[pi]), int(tab.n_inv_sh[pi]), q))
+                if four:  # N^-1 is in the inverse twist and matrix
+                    res.append(_four_step_inv(s, pi, q, tk, win))
+                else:
+                    s = _pass_ntt(s, twi[pi], q, N, True)
+                    res.append(ntt.mul_shoup(s, int(tab.n_inv[pi]), int(tab.n_inv_sh[pi]), q))
             r4 = torch.stack(res, dim=-2)  # [kp1, ng, NP, N]
             for quarter in range(4):  # block `quarter` folds its coefficients
                 cs = slice(quarter * N // 4, (quarter + 1) * N // 4)
@@ -375,6 +523,46 @@ def test_fold_model_matches_prime_split_multibit_and_jnp(keys, fold, name, G, pe
     x, tv = _inputs(ck, G, 300 + G, per_gate)
     got = _model(tdsk, words(x), words(tv), fold=_crt_fold if fold == "crt" else _garner)
     assert torch.equal(got, pbs.blind_rotate_prime_split(tdsk, words(x), words(tv)))
+    assert torch.equal(got, pbs.blind_rotate_multibit(tdsk, words(x), words(tv)))
+    if jnp_too:
+        ref = np.asarray(pbs_jnp.blind_rotate_multibit(jdsk, jnp.asarray(x), jnp.asarray(tv)))
+        np.testing.assert_array_equal(to_host(got), ref)
+
+
+@pytest.mark.parametrize("name,G,per_gate,jnp_too", [
+    ("k3", 5, True, True), ("k3", 37, False, False), ("mb4", 3, True, True), ("n2048", 3, True, False),
+])
+def test_four_step_model_matches_transposed_multibit_and_jnp(keys, name, G, per_gate, jnp_too):
+    """K4's order of operations (the body with FourStepTC: the 8-point
+    stages as the first register pass, the twist, the limb products on the
+    tensor cores in the four-step frequency order, the four-step chunked
+    BSK and ef4 lookups, the products straight into limb planes, the
+    inverse product, twist and stages, no N^-1 in Garner) equals
+    `pbs.blind_rotate_transposed`, `pbs.blind_rotate_multibit` and
+    helm_tpu's jnp rotation; N = 2048 takes p = 65537's scaled two-limb
+    matrices."""
+    ck, jdsk, tdsk = keys[name]
+    x, tv = _inputs(ck, G, 600 + G, per_gate)
+    got = _model(tdsk, words(x), words(tv), transform="four_step")
+    assert torch.equal(got, pbs.blind_rotate_transposed(tdsk, words(x), words(tv)))
+    assert torch.equal(got, pbs.blind_rotate_multibit(tdsk, words(x), words(tv)))
+    if jnp_too:
+        ref = np.asarray(pbs_jnp.blind_rotate_multibit(jdsk, jnp.asarray(x), jnp.asarray(tv)))
+        np.testing.assert_array_equal(to_host(got), ref)
+
+
+@pytest.mark.parametrize("name,G,per_gate,jnp_too", [
+    ("k3", 5, True, True), ("mb4", 3, False, True), ("n2048", 3, True, False),
+])
+def test_ladder_model_matches_ladder_multibit_and_jnp(keys, name, G, per_gate, jnp_too):
+    """K3's order of operations (the body with the Ladder source: NTT(X^a)
+    as the Shoup product of T[b] over a's set bits, K1's chunked BSK)
+    equals `pbs.blind_rotate_ladder`, `pbs.blind_rotate_multibit` and
+    helm_tpu's jnp rotation."""
+    ck, jdsk, tdsk = keys[name]
+    x, tv = _inputs(ck, G, 700 + G, per_gate)
+    got = _model(tdsk, words(x), words(tv), mono="ladder")
+    assert torch.equal(got, pbs.blind_rotate_ladder(tdsk, words(x), words(tv)))
     assert torch.equal(got, pbs.blind_rotate_multibit(tdsk, words(x), words(tv)))
     if jnp_too:
         ref = np.asarray(pbs_jnp.blind_rotate_multibit(jdsk, jnp.asarray(x), jnp.asarray(tv)))
@@ -440,21 +628,55 @@ def test_cluster_slots_holds_the_plan_to_the_kernel(keys, monkeypatch, name, off
     assert seen == [key.bsk_k1.element_size()] and seen[0] == (2 if mb_pbs._narrow(p) else 4)
 
 
+@pytest.mark.parametrize("kernel", ["blind_rotate_ts", "blind_rotate_gm"])
+def test_cluster_slots_of_k4_and_k3(keys, monkeypatch, kernel):
+    """`cluster_slots` asks K4's and K3's own C entries, holds them to
+    `smem_bytes` of that kernel (K4's with its limb region, K3's with its
+    monomials), and builds no chunked BSK copy to learn the element size."""
+    _, _, dsk = keys["k3"]
+    dsk = dataclasses.replace(dsk)  # a fresh key: nothing cached
+    p, key = dsk.params, mb_pbs.mb_server_key(dsk)
+    seen = []
+
+    def entry(name_, argtypes, symbol=None):
+        assert (name_, symbol) == (kernel, f"helm_{kernel}_clusters")
+
+        def call(*args):
+            seen.append(args[11])
+            args[12]._obj.value = 29
+            args[13]._obj.value = mb_pbs.smem_bytes(p, args[9], args[10], kernel)
+            return 0
+
+        return call
+
+    monkeypatch.setattr(mb_pbs.build, "entry", entry)
+    monkeypatch.setattr(mb_pbs, "_slots", {})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert mb_pbs.cluster_slots(dsk, 2, kernel) == 29
+    assert seen == [2] and "bsk_k1" not in vars(key)
+    assert mb_pbs.plan_for(dsk, 8, kernel).smem == mb_pbs.smem_bytes(p, 1, key.chunk, kernel)
+
+
 def test_k1_phases_instruments_the_kernel():
-    """tools/k1_phases finds each of its anchors in the kernel once (it
-    runs only on the card; this keeps its anchors in step with the source)."""
+    """tools/k1_phases finds each of its anchors in the kernel once, for K1
+    and for K4 (it runs only on the card; this keeps its anchors in step
+    with the source)."""
     from helm_tpu_torch.tools import k1_phases
 
-    src = k1_phases.instrumented_source()
-    assert all(f"MARK_({i})" in src for i in range(7)) and "helm_k1_clocks" in src
+    for kernel in ("mb", "ts"):
+        src = k1_phases.instrumented_source(kernel)
+        assert all(f"MARK_({i})" in src for i in range(7)) and "helm_k1_clocks" in src
+        assert f"helm_blind_rotate_{kernel}_clusters" in src
 
 
-@pytest.mark.parametrize("single_bit", [False, True], ids=["K1-K6", "K2"])
-def test_every_multibit_set_has_a_k1_build(single_bit):
-    """A build per (grouping, rows): K1 and K6 for every multi-bit set, K2
-    for every grouping-1 set; and digits |d| <= B/2 below the smallest
-    prime (the kernels' floor-mod adds p once)."""
-    builds = mb_pbs.K2_BUILDS if single_bit else mb_pbs.K1_BUILDS
+@pytest.mark.parametrize("single_bit,name", [
+    (False, "K1_BUILDS"), (True, "K2_BUILDS"), (False, "K4_BUILDS"), (False, "K3_BUILDS"),
+], ids=["K1-K6", "K2", "K4", "K3"])
+def test_every_multibit_set_has_a_k1_build(single_bit, name):
+    """A build per (grouping, rows): K1 and K6, K4 and K3 for every
+    multi-bit set, K2 for every grouping-1 set; and digits |d| <= B/2
+    below the smallest prime (the kernels' floor-mod adds p once)."""
+    builds = getattr(mb_pbs, name)
     sets = [p for p in vars(P).values() if isinstance(p, P.TfheParams) and (p.grouping == 1) == single_bit]
     assert sets
     for p in sets:
@@ -467,6 +689,8 @@ def test_every_multibit_set_has_a_k1_build(single_bit):
     ("K1_BUILDS", "K6", 3, 4, dict(n=15)),
     ("K1_BUILDS", "K1", 2, 5, dict(pbs_mask_base_log=8, pbs_mask_level=3)),
     ("K2_BUILDS", "K2", 1, 9, dict(k=2, pbs_level=3)),
+    ("K4_BUILDS", "K4", 3, 4, dict(n=15)),
+    ("K3_BUILDS", "K3", 2, 5, dict(pbs_mask_base_log=8, pbs_mask_level=3)),
 ])
 def test_check_build_refuses_a_shape_without_a_build(builds, what, grouping, rows, change):
     """The wrappers refuse, before any launch, a (grouping, rows) their

@@ -9,8 +9,16 @@
 - `pbs.blind_rotate_transposed` against `pbs_jnp.blind_rotate_multibit`,
   word for word, at TEST_PARAMS_K3 (ragged G=11, per-gate test
   polynomials), TEST_PARAMS_MB4 and a tiny N=2048 g=2 set (PRIMES).
-- `ts_pbs.ts_server_key` as a permutation of the BSK, the B-fragment
-  packing of the limb matrices, and the wrapper's dispatch by device.
+- The two-limb window split of the N2-point matrices (`ntt.window_tables`:
+  every entry of the scaled matrix in two signed 8-bit limbs, c = 3 for
+  p = 65537 and 1 elsewhere), and K4's transforms in the kernel's
+  arithmetic (the 8-point stages as a register pass, the twist, the limb
+  products recombined with c^-1; `tests/test_torch_mb_tiles.py`
+  `_four_step_fwd` / `_four_step_inv`) equal to `ntt_fwd_four_step` /
+  `ntt_inv_four_step`.
+- `ts_pbs.ts_server_key`: the chunked four-step BSK inverts to a
+  permutation of the BSK; the B-fragment packing of the window limbs; the
+  transform's constants; the wrapper's dispatch by device.
 """
 
 import dataclasses
@@ -30,7 +38,8 @@ from helm_tpu_torch.fhe import ntt, pbs
 from helm_tpu_torch.fhe.modring import PRIMES, PRIMES_512, PRIMES_1024, get_tables
 from helm_tpu_torch.fhe.ntt import to_host, words
 from helm_tpu_torch.fhe.server_key import server_key_from_reference
-from helm_tpu_torch.ops import ts_pbs
+from helm_tpu_torch.ops import mb_pbs, ts_pbs
+from test_torch_mb_tiles import _four_step_fwd, _four_step_inv, _untiled
 
 #: each prime set with a ring size that uses it
 PRIME_SETS = {"PRIMES_512": (PRIMES_512, 512), "PRIMES_1024": (PRIMES_1024, 1024), "PRIMES": (PRIMES, 2048)}
@@ -134,52 +143,118 @@ def test_blind_rotate_transposed_matches_multibit(keys, name, G):
 
 
 def test_ts_server_key_is_a_permutation_of_the_bsk(keys):
-    _, _, tdsk = keys["n2048"]
-    p = tdsk.params
-    key = ts_pbs.ts_server_key(tdsk)
-    assert ts_pbs.ts_server_key(tdsk) is key  # cached per key
-    nv1 = (1 << p.grouping) - 1
-    bsk = tdsk.bsk_ntt  # [n/g, 2^g-1, rows, k+1, NP, N]
-    assert tuple(key.bsk.shape) == (p.n // p.grouping, 4, nv1, p.gadget_rows, p.k + 1, p.N)
-    assert key.bsk.is_contiguous()
-    perm = torch.from_numpy(ntt.mxu_tables(p.N)["perm_from_std"])
-    j, pi, v, r, c = 3, 3, 1, 2, 1
-    assert torch.equal(key.bsk[j, pi, v, r, c], bsk[j, v, r, c, pi][perm])
-    assert sorted(key.bsk[j, pi, v, r, c].tolist()) == sorted(bsk[j, v, r, c, pi].tolist())
-    _, ef = pbs.power_tables(p.N, "cpu")
-    assert torch.equal(key.ef4.long(), ef[perm])
+    """K4's BSK is K1's chunked layout (`mb_pbs.tiled_bsk`: i16 where the
+    sums fit u32) of the BSK in the four-step frequency order: untiled, each
+    (group, subset, row, component, prime) slab is a permutation of the
+    BSK's; at a g = 2 set (u16), a g = 4 set and N = 2048."""
+    for name in ("k3", "mb4", "n2048"):
+        _, _, tdsk = keys[name]
+        p = tdsk.params
+        key = ts_pbs.ts_server_key(tdsk)
+        assert ts_pbs.ts_server_key(tdsk) is key  # cached per key
+        nv1 = (1 << p.grouping) - 1
+        bsk = tdsk.bsk_ntt  # [n/g, 2^g-1, rows, k+1, NP, N]
+        chunk = mb_pbs.chunk_freqs(p)
+        assert tuple(key.bsk.shape) == (p.n // p.grouping, 4, p.N // chunk, nv1, p.gadget_rows, p.k + 1, chunk)
+        assert key.bsk.dtype == (torch.int16 if mb_pbs._narrow(p) else torch.int32) and key.bsk.is_contiguous()
+        perm = torch.from_numpy(ntt.mxu_tables(p.N)["perm_from_std"])
+        flat = _untiled(key.bsk)
+        assert torch.equal(flat, bsk[..., perm].to(torch.int32))
+        j, pi, v, r, c = 3, 3, nv1 - 1, 2, 1
+        assert sorted(flat[j, v, r, c, pi].tolist()) == sorted(bsk[j, v, r, c, pi].tolist())
+        _, ef = pbs.power_tables(p.N, "cpu")
+        assert torch.equal(key.ef4.long(), ef[perm])
 
 
 @pytest.mark.parametrize("N", [64, 512, 2048])
 def test_b_fragments_follow_the_mma_layout(N):
     """Unpacking the B fragments by the PTX ISA's m16n8k32 layout (lane
     (g, t) holds column 8 nt + g, rows 32 kk + 4t + (0..3) and + 16)
-    gives back the limb matrices, zero-padded to a multiple of 32 rows."""
-    t = ntt.mxu_tables(N)
-    frag = ts_pbs.b_fragments(t["w2_limbs"])
+    gives back the two window limbs of the matrices, zero-padded to a
+    multiple of 32 rows; and those are what K4's key holds."""
+    t = ntt.window_tables(N)
+    frag = ts_pbs.b_fragments(t["w2_win"])
     N2 = N // ntt.N1
     Kp = -(-N2 // 32) * 32
-    assert frag.shape == (4, ntt.MAX_LIMBS, Kp // 32, N2 // 8, 32, 8)
-    back = np.zeros((4, ntt.MAX_LIMBS, Kp, N2), np.int8)
+    assert frag.shape == (4, 2, Kp // 32, N2 // 8, 32, 8)
+    assert np.array_equal(ts_pbs.transform_tables(N, "cpu")["bfwd"].numpy(), frag)
+    back = np.zeros((4, 2, Kp, N2), np.int8)
     for lane in range(32):
         g, tq = lane >> 2, lane & 3
         for j in range(8):
             k = np.arange(Kp // 32)[:, None] * 32 + tq * 4 + (j & 3) + 16 * (j >= 4)
             n = np.arange(N2 // 8)[None, :] * 8 + g
             back[:, :, k, n] = frag[:, :, :, :, lane, j]
-    np.testing.assert_array_equal(back[:, :, :N2], t["w2_limbs"])
+    np.testing.assert_array_equal(back[:, :, :N2], t["w2_win"])
     assert not back[:, :, N2:].any()
 
 
 def test_transform_tables_constants():
+    """ts_consts per prime: the data's limbs, then 256^s c^-1 mod p of the
+    forward and of the inverse matrix (c = 3 at 65537); the stage pairs
+    are the standard transform's first three stages; the twists are
+    mxu_tables' as (w, w_sh) pairs."""
     tables = ts_pbs.transform_tables(2048, "cpu")
-    vals = list(tables["ts_consts"])
-    t = ntt.mxu_tables(2048)
-    blk = 4 * 3 * 8
-    assert vals[:blk] == t["stage_tw"].ravel().tolist()
-    assert vals[3 * blk:4 * blk] == t["istage_tw_sh"].ravel().tolist()
-    assert vals[4 * blk:4 * blk + 4] == [2, 2, 2, 3]
-    assert vals[4 * blk + 4 + 3 * 5:] == [pow(256, s, 65537) for s in range(5)]
+    vals = tables["ts_consts"].long().numpy()
+    assert vals.shape == (4, 9)
+    t, tab = ntt.mxu_tables(2048), get_tables(2048)
+    assert vals[:, 0].tolist() == [2, 2, 2, 3]
+    assert tables["scale"] == ((1, 1), (1, 1), (1, 1), (3, 3))
+    inv3 = pow(3, -1, 65537)
+    assert vals[3, 1:5].tolist() == [pow(256, s, 65537) * inv3 % 65537 for s in range(4)]
+    assert vals[0, 5:].tolist() == [pow(256, s, PRIMES[0]) for s in range(4)]
+    stw = tables["stw"].long().numpy()
+    assert (stw[:, 1:8, 0] == tab.psi_rev[:, 1:8]).all()
+    assert (stw[:, 9:, 1] == tab.psi_inv_rev_sh[:, 1:8]).all()
+    assert not stw[:, [0, 8]].any()
+    twf = tables["twf"].long().numpy()
+    assert (twf[..., 0] == t["tw"].reshape(4, -1)).all() and (twf[..., 1] == t["tw_sh"].reshape(4, -1)).all()
+
+
+@pytest.mark.parametrize("N", [64, 512, 1024, 2048])
+def test_window_split_takes_every_scaled_entry_in_two_limbs(N):
+    """Two signed 8-bit limbs hold [-32896, 32639]: every residue of a
+    prime below 65536 has a representative there, and of 65537 all but
+    32640, which both of its matrices contain; scaled by c = 3 they have no
+    such entry, and each matrix's two window limbs give back c w mod p."""
+    t, w = ntt.mxu_tables(N), ntt.window_tables(N)
+    for pi, p in enumerate(t["primes"]):
+        for name in ("w2", "w2i"):
+            c = int(w[name + "_scale"][pi])
+            assert c == (3 if p == 65537 else 1)
+            limbs = w[name + "_win"][pi].astype(np.int64)
+            assert limbs.shape == (2, N // 8, N // 8)
+            value = limbs[0] + 256 * limbs[1]
+            assert value.min() >= ntt.WINDOW[0] and value.max() <= ntt.WINDOW[1]
+            np.testing.assert_array_equal(value % p, t[name][pi] * c % p)
+            if p == 65537:
+                assert (t[name][pi] == 32640).any()  # no two-limb form unscaled
+                with pytest.raises(AssertionError, match="no two-limb"):
+                    ntt.window(t[name][pi], p)
+    assert ntt.matrix_scale(np.array([32640]), 65537) == 2
+    assert ntt.matrix_scale(np.array([32640, 16320]), 65537) == 3
+
+
+@pytest.mark.parametrize("N", [64, 512, 1024, 2048])
+def test_kernel_four_step_equals_the_plain_transforms(N):
+    """K4's transforms in the kernel's order and arithmetic (the body's
+    first register pass as the 8-point stages, the twist, the data's
+    balanced limbs against the matrices' window limbs, recombined with
+    256^s c^-1; the inverse twist and stages) equal ntt_fwd_four_step and
+    ntt_inv_four_step, boundary residues of the balanced split included."""
+    primes = ntt.mxu_tables(N)["primes"]
+    rng = np.random.default_rng(N + 1)
+    x = np.stack([rng.integers(0, p, size=(3, N)) for p in primes], axis=1)  # [3, NP, N]
+    for pi, p in enumerate(primes):
+        x[0, pi, :4] = (0, p // 2, p // 2 + 1, p - 1)
+    xt = torch.from_numpy(x.astype(np.int64))
+    key = ts_pbs.transform_tables(N, "cpu")
+    tk = type("T", (), {k: key[k] for k in ("twf", "twi", "stw")})
+    win = ntt.window_tables(N)
+    fwd = torch.stack([_four_step_fwd(xt[:, pi], pi, p, tk, win) for pi, p in enumerate(primes)], dim=1)
+    assert torch.equal(fwd, ntt.ntt_fwd_four_step(xt, N))
+    inv = torch.stack([_four_step_inv(fwd[:, pi], pi, p, tk, win) for pi, p in enumerate(primes)], dim=1)
+    assert torch.equal(inv, ntt.ntt_inv_four_step(fwd, N)) and torch.equal(inv, xt)
 
 
 def test_off_the_cpu_k4_launches_or_raises(keys):
