@@ -58,28 +58,36 @@ Phases, in order (each prints one line, with its seconds):
           through mb_pbs.bootstrap, decrypted against the truth table;
           bootstraps/s
   c880    main path: c880-like through BooleanEngine(mode="gates") at
-          GATES_128_K3 (K1): the golden CSV and the Circuit.evaluate oracle,
-          one vector and a batch of 8; seconds per vector
-  g1      main path at GATES_TPU (K2): 2-bit-adder and s27 x 3 cycles
-          against their golden CSVs, c880-like (golden CSV + oracle, one
-          vector and a batch of 8; s/vector) and a G=1024 AND batch against
-          the truth table (bootstraps/s)
+          GATES_128_K3 (K1), fused (the auto-rule must fuse it: one CUDA
+          graph replay a call after a first, eager call that captures) and
+          with fuse_levels=False, on the same encrypted wires: the replayed
+          words must equal the eager ones on every wire but the plan's trash
+          wire (tolerance 0), one vector and a batch of 8; the golden CSV and
+          the Circuit.evaluate oracle; seconds per vector for both
+  g1      main path at GATES_TPU (K2): 2-bit-adder against its golden CSV;
+          s27 x 3 cycles through fused evaluate_cycles (one graph of 3 x the
+          levels, replayed) and through three evaluate calls: equal words,
+          the golden CSV, s/cycle for both; c880-like fused and eager as in
+          c880; a G=1024 AND batch against the truth table (bootstraps/s)
   lut     main path: 8-bit-adder-lut-3-1 through BooleanEngine(mode="lut")
-          at LUT_PARAMS (K2) and LUT_128_K2 (K1), against its golden CSV and
-          the oracle; s/vector for each set
+          at LUT_PARAMS (K2) and LUT_128_K2 (K1), fused (per-slot test
+          polynomials inside the graph) and eager on the same wires: equal
+          words, the golden CSV and the oracle; s/vector for both
   arith   main path: chi_squared_arith.v u32 through ArithEngine at
           ARITH_128_MB2 (K1) for the four recorded vector sets
           chi_squared_arith_{1..4}, one vector at a time, then as one batch
           of 4: each against its golden CSV and the Circuit.evaluate_arith
           oracle; s/vector, merged rounds and slots
   ps      main path under HELM_TPU_MB_KERNEL=ps (K6): the G=1024 AND batch
-          and c880-like at GATES_128_K3 (truth table, golden CSV + oracle);
-          K6 must launch and K1 must not. Then one G=37 AND batch under
+          and c880-like at GATES_128_K3 fused and eager as in c880 (truth
+          table, equal words, golden CSV + oracle; K6 launches inside the
+          graph); K6 must launch and K1 must not. Then one G=37 AND batch under
           HELM_TPU_MB_KERNEL=hb2, which must launch K1
   serve   main path of the daemon under HELM_TPU_MB_KERNEL=ts (K4):
           helm_tpu_torch.serve.main in process on c880-like at GATES_128_K3
           (8 request CSVs: the golden vector and 7 from a numpy seed, --batch
-          4 --max-batches 2) and chi-squared u32 at ARITH_128_MB2 (the four
+          4 --max-batches 2 --fuse-levels: the second batch must be a graph
+          replay, K4 inside it) and chi-squared u32 at ARITH_128_MB2 (the four
           recorded vectors, --batch 4 --max-batches 1): every output against
           its golden CSV or the oracle, every input moved to done/; s/vector
           per batch; K4 must launch and K1 must not
@@ -91,17 +99,29 @@ Phases, in order (each prints one line, with its seconds):
           chi_squared_arith_1) must reproduce their golden CSVs, and
           chi-squared u32 with -I, the four recorded vectors in one batch,
           their four golden CSVs
+  bench   python -m helm_tpu_torch.bench in a subprocess at its defaults
+          but BENCH_MEDIAN_N=3 and no key cache: its two JSON lines,
+          c880-like_wall_clock_per_vector and, last,
+          gate_bootstraps_per_sec_per_chip, printed
   profile torch.profiler over one G=1024 bootstrap batch and one c880-like
-          vector at GATES_128_K3 (K1, then K6 under HELM_TPU_MB_KERNEL=ps,
-          and the batch under HELM_TPU_MB_KERNEL=ts: K4),
-          one c880-like vector at GATES_TPU and one chi-squared u32 vector
-          at ARITH_128_MB2: device time by kernel and the device's idle
-          share; under ts the rotation must be one rotate_tiles launch per
-          batch, with no rotate_group_ts or crt_accumulate
+          vector at GATES_128_K3 (K1: eager, then fused, one graph replay;
+          then K6 under HELM_TPU_MB_KERNEL=ps, and the batch under
+          HELM_TPU_MB_KERNEL=ts: K4), one c880-like vector at GATES_TPU
+          (eager, then fused) and one chi-squared u32 vector at
+          ARITH_128_MB2: device time by kernel and the device's idle share;
+          under ts the rotation must be one rotate_tiles launch per batch,
+          with no rotate_group_ts or crt_accumulate; a fused window must
+          show one rotate_tiles launch per PBS level in the trace of its
+          replay
 
 The kernels' launch counters are set to 0 just before each main-path phase
 (batch, c880, g1, lut, arith, ps, serve, sweep) and read just after it;
-the kernel JSON line reports the sums. A kernel's bound_ms is the larger
+the kernel JSON line reports the sums. A graph replay launches its
+kernels without calling their wrappers: the engine adds, at each replay,
+the launches the wrapper counted while the graph was captured (and takes
+them back from the capture, which launched nothing), so the counts stay
+the device's launches; phase profile checks them against the trace of a
+replay. A kernel's bound_ms is the larger
 of its integer operations over the card's INT32 rate and its bytes over
 the memory rate (int_ops and min_bytes below; K6, K4 and K3 compute K1's
 function: the same transforms, products and bytes, whatever their
@@ -126,7 +146,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = (
     "device", "build", "k1", "k6", "k4", "k3", "k2", "batch", "c880", "g1", "lut", "arith", "ps",
-    "serve", "sweep", "cli", "profile",
+    "serve", "sweep", "cli", "bench", "profile",
 )
 MAIN_PATH = ("batch", "c880", "g1", "lut", "arith", "ps", "serve", "sweep")
 KERNELS = ("blind_rotate_mb", "blind_rotate_sb", "blind_rotate_ps", "blind_rotate_ts", "blind_rotate_gm")
@@ -570,6 +590,52 @@ class Smoke:
 
         return self._and_batch(P.GATES_128_K3, 2024)
 
+    def _fused_vs_eager(self, fused, eager, wires, reps):
+        """Evaluate `wires` with the eager engine (`reps` timed calls) and
+        with the fused one (one warm-up call, which runs eagerly and
+        captures, then `reps` timed graph replays); the replayed words must
+        equal the eager ones on every wire but the plan's trash wire
+        (tolerance 0), and each replay must add the graph's launches to the
+        route's wrapper. Returns (fused words, eager s, fused s, first fused
+        call s), the first two times the medians of the calls."""
+        import numpy as np
+        import torch
+
+        from helm_tpu_torch.ops import mb_pbs
+
+        assert fused.fused and not eager.fused, (fused.fused, eager.fused)
+
+        def timed(eng):
+            times = []
+            for _ in range(reps):
+                _sync()
+                t0 = time.perf_counter()
+                out = eng.evaluate(wires)
+                _sync()
+                times.append(time.perf_counter() - t0)
+            return out, float(np.median(times))
+
+        ref, t_eager = timed(eager)
+        _sync()
+        t0 = time.perf_counter()
+        fused.evaluate(wires)  # the eager run and the capture
+        _sync()
+        t_first = time.perf_counter() - t0
+        rotation = mb_pbs.blind_rotation(fused.params)
+        n0, r0 = rotation.launches, fused.replays
+        got, t_fused = timed(fused)
+        pbs_levels = sum(1 for lp in fused.plan.levels if lp.num_slots)
+        assert fused.replays == r0 + reps, "the fused engine did not replay its graph"
+        assert rotation.launches - n0 == reps * pbs_levels, (
+            f"{rotation.__name__}: {rotation.launches - n0} launches counted over {reps} replays "
+            f"of {pbs_levels} PBS levels"
+        )
+        real = fused.plan.num_wires - 1  # the trash wire is the last
+        if not torch.equal(got[..., :real, :], ref[..., :real, :]):
+            bad = (got[..., :real, :] != ref[..., :real, :]).nonzero()[0].tolist()
+            raise AssertionError(f"graph replay != eager at {bad}")
+        return got, t_eager, t_fused, t_first
+
     def _c880(self, p, seed):
         import numpy as np
 
@@ -577,33 +643,26 @@ class Smoke:
 
         ck, sk, _ = self.keys_for(p, seed)
         nl = _netlist("c880-like.v")
-        eng = BooleanEngine(mode="gates", params=p, keys=(ck, sk), device=self.device)
-        eng.compile(nl)
+        fused = BooleanEngine(mode="gates", params=p, keys=(ck, sk), device=self.device)
+        eager = BooleanEngine(mode="gates", params=p, keys=(ck, sk), device=self.device, fuse_levels=False)
+        fused.compile(nl)
+        eager.compile(nl)
+        assert fused.fused, f"{p.name}: the auto-rule did not fuse c880-like"
         inputs = _golden("c880-like.inputs.csv")
-        times = []
-        for _ in range(3):
-            wires = eng.encrypt_inputs(inputs)
-            _sync()
-            t0 = time.perf_counter()
-            wires = eng.evaluate(wires)
-            _sync()
-            times.append(time.perf_counter() - t0)
-        got = eng.decrypt_outputs(wires)
+        wires, te, tf, t1 = self._fused_vs_eager(fused, eager, fused.encrypt_inputs(inputs), 3)
+        got = fused.decrypt_outputs(wires)
         assert got == _golden("c880-like.outputs.csv"), f"{p.name}: c880-like differs from the golden CSV"
         assert got == _oracle(nl, inputs), f"{p.name}: c880-like differs from the oracle"
         rng = np.random.default_rng(8)
         vecs = [{w: bool(rng.integers(0, 2)) for w in sorted(nl.inputs)} for _ in range(8)]
-        wires = eng.encrypt_inputs(vecs)
-        _sync()
-        t0 = time.perf_counter()
-        wires = eng.evaluate(wires)
-        _sync()
-        tb = time.perf_counter() - t0
-        for i, (m, o) in enumerate(zip(vecs, eng.decrypt_outputs(wires))):
+        wires, tbe, tbf, tb1 = self._fused_vs_eager(fused, eager, fused.encrypt_inputs(vecs), 2)
+        for i, (m, o) in enumerate(zip(vecs, fused.decrypt_outputs(wires))):
             assert o == _oracle(nl, m), f"{p.name}: c880-like batch vector {i} differs from the oracle"
         return (
-            f"{p.name} c880-like golden CSV + oracle ok; {float(np.median(times)):.6f} s/vector "
-            f"(median of {[round(t, 6) for t in times]}); batch of 8 ok, {tb / 8:.6f} s/vector"
+            f"{p.name} c880-like golden CSV + oracle ok, graph replay == eager (tolerance 0): "
+            f"fused {tf:.6f} s/vector, eager {te:.6f} s/vector (medians of 3; the first fused call, "
+            f"eager run + capture, {t1:.6f} s); batch of 8 ok, fused {tbf / 8:.6f} s/vector, eager "
+            f"{tbe / 8:.6f} s/vector (medians of 2; first fused call {tb1:.6f} s)"
         )
 
     def phase_c880(self):
@@ -612,35 +671,67 @@ class Smoke:
         return self._c880(P.GATES_128_K3, 2024)
 
     def phase_g1(self):
+        import torch
+
         from helm_tpu_torch import BooleanEngine
         from helm_tpu_torch import params as P
+        from helm_tpu_torch.ops import sb_pbs
 
         p = P.GATES_TPU
         ck, sk, _ = self.keys_for(p, 2026)
         notes = []
-        for net, cycles, golden in (
-            ("2-bit-adder", 1, "2-bit-adder.outputs.csv"),
-            ("s27", 3, "s27_3cycles.outputs.csv"),
-        ):
-            nl = _netlist(f"{net}.v")
-            eng = BooleanEngine(mode="gates", params=p, keys=(ck, sk), device=self.device)
-            eng.compile(nl)
-            inputs = _golden(f"{net}.inputs.csv")
-            _sync()
-            t0 = time.perf_counter()
-            wires = eng.evaluate_cycles(eng.encrypt_inputs(inputs), cycles)
-            got = eng.decrypt_outputs(wires)
-            dt = time.perf_counter() - t0
-            assert got == _golden(golden), f"{net} x{cycles} at {p.name} differs from {golden}"
-            assert got == _oracle(nl, inputs, cycles), f"{net} x{cycles} differs from the oracle"
-            notes.append(f"{net} x{cycles} golden CSV + oracle ok ({dt:.6f} s)")
+        nl = _netlist("2-bit-adder.v")
+        eng = BooleanEngine(mode="gates", params=p, keys=(ck, sk), device=self.device)
+        eng.compile(nl)
+        inputs = _golden("2-bit-adder.inputs.csv")
+        _sync()
+        t0 = time.perf_counter()
+        got = eng.decrypt_outputs(eng.evaluate(eng.encrypt_inputs(inputs)))
+        dt = time.perf_counter() - t0
+        assert got == _golden("2-bit-adder.outputs.csv"), f"2-bit-adder at {p.name} differs from its golden CSV"
+        assert got == _oracle(nl, inputs), "2-bit-adder differs from the oracle"
+        notes.append(f"2-bit-adder x1 golden CSV + oracle ok ({dt:.6f} s)")
+
+        # s27 x 3: all cycles in one graph (evaluate_cycles), against three
+        # eager evaluate calls on the same wires
+        nl = _netlist("s27.v")
+        fused = BooleanEngine(mode="gates", params=p, keys=(ck, sk), device=self.device, fuse_levels=True)
+        eager = BooleanEngine(mode="gates", params=p, keys=(ck, sk), device=self.device, fuse_levels=False)
+        fused.compile(nl)
+        eager.compile(nl)
+        inputs = _golden("s27.inputs.csv")
+        w0 = fused.encrypt_inputs(inputs)
+        _sync()
+        t0 = time.perf_counter()
+        ref = w0
+        for _ in range(3):
+            ref = eager.evaluate(ref)
+        _sync()
+        te = time.perf_counter() - t0
+        fused.evaluate_cycles(w0, 3)  # the eager run and the capture
+        n0, r0 = sb_pbs.blind_rotate_sb.launches, fused.replays
+        _sync()
+        t0 = time.perf_counter()
+        got = fused.evaluate_cycles(w0, 3)
+        _sync()
+        tf = time.perf_counter() - t0
+        pbs_levels = sum(1 for lp in fused.plan.levels if lp.num_slots)
+        assert fused.replays == r0 + 1, "s27 x3: evaluate_cycles did not replay its graph"
+        assert sb_pbs.blind_rotate_sb.launches - n0 == 3 * pbs_levels, "s27 x3: K2 launches per replay"
+        real = fused.plan.num_wires - 1
+        assert torch.equal(got[:real], ref[:real]), "s27 x3: graph replay != three eager evaluate calls"
+        out = fused.decrypt_outputs(got)
+        assert out == _golden("s27_3cycles.outputs.csv"), f"s27 x3 at {p.name} differs from s27_3cycles.outputs.csv"
+        assert out == _oracle(nl, inputs, 3), "s27 x3 differs from the oracle"
+        notes.append(
+            f"s27 x3 golden CSV + oracle ok, one graph replay of 3 x {len(fused.plan.levels)} levels == "
+            f"3 eager evaluate calls (tolerance 0): fused {tf / 3:.6f} s/cycle, eager {te / 3:.6f} s/cycle"
+        )
         notes.append(self._c880(p, 2026))
         notes.append(self._and_batch(p, 2026))
         return "; ".join(notes)
 
     def phase_lut(self):
-        import numpy as np
-
         from helm_tpu_torch import BooleanEngine
         from helm_tpu_torch import params as P
 
@@ -651,22 +742,19 @@ class Smoke:
         notes = []
         for p, seed in ((P.LUT_PARAMS, 2028), (P.LUT_128_K2, 2025)):
             ck, sk, _ = self.keys_for(p, seed)
-            eng = BooleanEngine(mode="lut", params=p, keys=(ck, sk), device=self.device)
-            eng.compile(nl)
-            times = []
-            for _ in range(3):
-                wires = eng.encrypt_inputs(inputs)
-                _sync()
-                t0 = time.perf_counter()
-                wires = eng.evaluate(wires)
-                _sync()
-                times.append(time.perf_counter() - t0)
-            got = eng.decrypt_outputs(wires)
+            fused = BooleanEngine(mode="lut", params=p, keys=(ck, sk), device=self.device)
+            eager = BooleanEngine(mode="lut", params=p, keys=(ck, sk), device=self.device, fuse_levels=False)
+            fused.compile(nl)
+            eager.compile(nl)
+            assert fused.fused, f"{p.name}: the auto-rule did not fuse the LUT adder"
+            wires, te, tf, t1 = self._fused_vs_eager(fused, eager, fused.encrypt_inputs(inputs), 3)
+            got = fused.decrypt_outputs(wires)
             assert _same(got, golden), f"LUT adder at {p.name} differs from the golden CSV: {got}"
             assert _same(got, exp), f"LUT adder at {p.name} differs from the oracle"
             notes.append(
-                f"{p.name} (grouping {p.grouping}) golden CSV + oracle ok; "
-                f"{float(np.median(times)):.6f} s/vector (median of {[round(t, 6) for t in times]})"
+                f"{p.name} (grouping {p.grouping}) golden CSV + oracle ok, graph replay == eager "
+                f"(tolerance 0): fused {tf:.6f} s/vector, eager {te:.6f} s/vector (medians of 3; "
+                f"first fused call {t1:.6f} s)"
             )
         return "8-bit-adder-lut-3-1: " + "; ".join(notes)
 
@@ -757,7 +845,7 @@ class Smoke:
             assert rc == 0, f"serve exited {rc}"
             assert not [f for f in os.listdir(watch) if f.endswith(".csv")], "inputs left in the watch dir"
             assert not os.path.exists(os.path.join(watch, "failed")), "serve quarantined an input"
-            return [float(x) for x in re.findall(r"\(([0-9.]+)s/vector\)", out)]
+            return re.findall(r"\(([0-9.]+)s/vector(, graph replay)?\)", out)
 
         notes = []
         with _mb_kernel("ts"), tempfile.TemporaryDirectory() as td:
@@ -776,14 +864,17 @@ class Smoke:
                     f.write("wire,value\n" + "".join(f"{w},{int(v)}\n" for w, v in vecs[f"v{i}"].items()))
             per = run(["-v", os.path.join(ROOT, "benchmarks/netlists/c880-like.v"), "--watch", watch,
                        "--outdir", outd, "--params", "gates_128_k3", "--seed", "2024", "--batch", "4",
-                       "--max-batches", "2", "--device", self.device], watch)
+                       "--max-batches", "2", "--fuse-levels", "--device", self.device], watch)
+            # the first batch runs eagerly and captures; the second is a replay
+            assert [bool(r) for _, r in per] == [False, True], f"serve --fuse-levels batches: {per}"
             for name, vec in vecs.items():
                 got = csv_io.read_input_wires(os.path.join(outd, f"{name}.out.csv"), "bool")
                 assert got == _oracle(nl, vec), f"serve c880-like {name} differs from the oracle"
             got = csv_io.read_input_wires(os.path.join(outd, "v0.out.csv"), "bool")
             assert got == _golden("c880-like.outputs.csv"), "serve c880-like differs from the golden CSV"
-            notes.append(f"gates_128_k3 c880-like, 8 requests in 2 batches of 4, golden CSV + oracle ok: "
-                         f"s/vector per batch {per}")
+            notes.append(f"gates_128_k3 c880-like --fuse-levels, 8 requests in 2 batches of 4 (the "
+                         f"second one graph replay), golden CSV + oracle ok: s/vector per batch "
+                         f"{[float(t) for t, _ in per]}")
 
             anl = _netlist("chi_squared_arith.v", arith=True)
             watch, outd = os.path.join(td, "chi"), os.path.join(td, "chi_out")
@@ -800,7 +891,7 @@ class Smoke:
                 assert got == _golden(f"chi_squared_arith_{i}.outputs.csv", "u32"), f"serve chi-squared {i} != golden"
                 assert got == _oracle_arith(anl, inputs, 32), f"serve chi-squared {i} differs from the oracle"
             notes.append(f"arith_128_mb2 chi-squared u32, the 4 recorded vectors in 1 batch, golden CSVs + "
-                         f"oracle ok: s/vector per batch {per}")
+                         f"oracle ok: s/vector per batch {[float(t) for t, _ in per]}")
         from helm_tpu_torch.ops import ts_pbs
 
         assert ts_pbs.blind_rotate_ts.launches > 0, "serve under HELM_TPU_MB_KERNEL=ts never launched K4"
@@ -837,12 +928,17 @@ class Smoke:
         from helm_tpu_torch.fhe.ntt import words
         from helm_tpu_torch.ops import mb_pbs
 
-        def c880_vector(p, seed):
+        pbs_levels = {}
+
+        def c880_vector(p, seed, fuse=False):
             ck, sk, _ = self.keys_for(p, seed)
-            eng = BooleanEngine(mode="gates", params=p, keys=(ck, sk), device=self.device)
+            eng = BooleanEngine(mode="gates", params=p, keys=(ck, sk), device=self.device, fuse_levels=fuse)
             eng.compile(_netlist("c880-like.v"))
             vec = eng.encrypt_inputs(_golden("c880-like.inputs.csv"))
-            return lambda: eng.evaluate(vec)
+            fn = lambda: eng.evaluate(vec)  # noqa: E731
+            if fuse:  # the untimed call before the window captures; the window replays
+                pbs_levels[fn] = sum(1 for lp in eng.plan.levels if lp.num_slots)
+            return fn
 
         def under_ps(fn):
             def run():
@@ -875,9 +971,11 @@ class Smoke:
         runs = {
             "gates_128_k3 batch1024": lambda: mb_pbs.bootstrap(dsk, x, tv),
             "gates_128_k3 c880_vector": c880_vector(p, 2024),
+            "gates_128_k3 c880_vector fused": c880_vector(p, 2024, True),
             "gates_128_k3 c880_vector under ps": under_ps(c880_vector(p, 2024)),
             "gates_128_k3 batch1024 under ts": under_ts(lambda: mb_pbs.bootstrap(dsk, x, tv)),
             "gates_tpu_v32 c880_vector": c880_vector(P.GATES_TPU, 2026),
+            "gates_tpu_v32 c880_vector fused": c880_vector(P.GATES_TPU, 2026, True),
             "arith_128_mb2 chi_squared_u32_vector": chi_squared_vector(P.ARITH_128_MB2, 2030),
         }
         notes = []
@@ -908,7 +1006,33 @@ class Smoke:
                 names = [k for _, k, _ in rows]
                 assert not [k for k in names if "rotate_group_ts" in k or "crt_accumulate" in k], names
                 assert [c for _, k, c in rows if "rotate_tiles" in k] == [1], rows
+            if fn in pbs_levels:  # a graph replay: its kernels are in the trace, one rotation a level
+                assert [c for _, k, c in rows if "rotate_tiles" in k] == [pbs_levels[fn]], rows
         return f"{len(notes)} windows profiled"
+
+    def phase_bench(self):
+        """python -m helm_tpu_torch.bench in a subprocess, at its defaults
+        but BENCH_MEDIAN_N=3 and no key cache (writing the compressed key
+        files takes longer than the keygen): its two JSON lines, the
+        circuit's first and the bootstrap rate last."""
+        res = subprocess.run(
+            [sys.executable, "-m", "helm_tpu_torch.bench"],
+            cwd=ROOT, capture_output=True, text=True, timeout=900,
+            env={**os.environ, "BENCH_MEDIAN_N": "3", "BENCH_KEY_CACHE": ""},
+        )
+        if res.returncode != 0:
+            raise AssertionError(f"bench failed ({res.returncode}):\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        print(res.stderr.strip(), flush=True)
+        lines = [json.loads(x) for x in res.stdout.splitlines() if x.startswith("{")]
+        assert [x["metric"] for x in lines] == [
+            "c880-like_wall_clock_per_vector", "gate_bootstraps_per_sec_per_chip"
+        ], lines
+        assert res.stdout.strip().splitlines()[-1].startswith('{"metric": "gate_bootstraps_per_sec_per_chip"')
+        for x in lines:
+            print(f"[bench] {json.dumps(x)}", flush=True)
+        circuit, rate = lines
+        return (f"c880-like {circuit['value']} s/vector (levels fused: {circuit['levels_fused']}), "
+                f"{rate['value']} bootstraps/s, on {rate['capture']}")
 
     def phase_cli(self):
         from helm_tpu_torch.io import csv_io

@@ -10,7 +10,12 @@ TEST_PARAMS_ARITH); otherwise a netlist with `lut` cells runs in LUT mode
 TEST_PARAMS). A missing device is an error, never a quiet switch to the
 CPU. `-I/--batch-input-files` evaluates several input CSVs in one batched
 pass (every bootstrap launch that many times wider); each vector's outputs
-print under `[vector i: file]` and go to `<-o>.<i>`.
+print under `[vector i: file]` and go to `<-o>.<i>`. `--fuse-levels` /
+`--no-fuse-levels` force fused level evaluation (on the card, one CUDA
+graph replay an evaluation after a first, eager call that captures it) on
+or off; by default narrow, deep circuits fuse. `--fuse-cycles` runs all
+`-c` cycles as one call of `BooleanEngine.evaluate_cycles` and prints the
+amortized time a cycle.
 
     python -m helm_tpu_torch.cli -v benchmarks/netlists/2-bit-adder.v \\
         -i benchmarks/test-cases/2-bit-adder.inputs.csv -o out.csv --device cuda
@@ -99,6 +104,20 @@ def build_argparser() -> argparse.ArgumentParser:
         "--keys", metavar="DIR",
         help="load client/server keys for the parameter set from DIR when "
         "present, else generate and save them there",
+    )
+    ap.add_argument(
+        "--fuse-levels", action="store_const", const=True, default=None,
+        help="force all levels into one CUDA graph replay (latency mode; gates "
+        "and LUT modes). Default: auto-enabled for narrow/deep circuits",
+    )
+    ap.add_argument(
+        "--no-fuse-levels", dest="fuse_levels", action="store_const", const=False,
+        help="force per-level launches",
+    )
+    ap.add_argument(
+        "--fuse-cycles", action="store_true",
+        help="evaluate all -c cycles in ONE CUDA graph replay (sequential "
+        "circuits without the READY protocol; prints amortized per-cycle time)",
     )
     ap.add_argument(
         "--device", default="cuda",
@@ -209,7 +228,8 @@ def _run_boolean(args, netlist, device) -> int:
     else:
         params, keys = _params_and_keys(args, P.TEST_PARAMS_LUT, P.DEFAULT_LUT, device)
     engine = BooleanEngine(
-        mode=mode, params=params, seed=args.seed, keys=keys, device=device
+        mode=mode, params=params, seed=args.seed, keys=keys, device=device,
+        fuse_levels=args.fuse_levels,
     )
     print(f"KeyGen done in {time.time() - start} seconds.")
     engine.compile(netlist)
@@ -221,14 +241,27 @@ def _run_boolean(args, netlist, device) -> int:
     print(f"Encryption done in {time.time() - start} seconds.")
 
     ready_flag = False
-    for cycle in range(args.cycles):
+    if args.fuse_cycles and args.cycles > 1 and not engine.has_ready():
+        # all cycles in one evaluate_cycles call (helm_tpu/cli.py:267-278):
+        # the amortized time a cycle, since a single replay has no
+        # per-cycle wall-clock
         start = time.time()
-        wires = engine.evaluate(wires, verbose=args.verbose)
-        if args.cycles > 1 and engine.has_ready():
-            ready_flag = True
-            valid = engine.evaluate_ready(wires, valid)
+        wires = engine.evaluate_cycles(wires, args.cycles)
         _sync(device)
-        print(f"Cycle {cycle}) Evaluation done in {time.time() - start} seconds.\n")
+        dt = time.time() - start
+        print(
+            f"Cycles 0..{args.cycles - 1}) Evaluation done in {dt} seconds "
+            f"(one fused call; {dt / args.cycles:.3f} s/cycle amortized).\n"
+        )
+    else:
+        for cycle in range(args.cycles):
+            start = time.time()
+            wires = engine.evaluate(wires, verbose=args.verbose)
+            if args.cycles > 1 and engine.has_ready():
+                ready_flag = True
+                valid = engine.evaluate_ready(wires, valid)
+            _sync(device)
+            print(f"Cycle {cycle}) Evaluation done in {time.time() - start} seconds.\n")
 
     start = time.time()
     print("Encrypted Evaluation:")

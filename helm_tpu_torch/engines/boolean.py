@@ -14,16 +14,30 @@ input vectors) and wires carry messages m * delta instead of +-q/8.
 Sequential circuits loop `evaluate` per cycle; the READY protocol latches
 outputs obliviously (`evaluate_ready`).
 
+Levels run as a Python loop. The wire tensor is cloned once per
+`evaluate` call and then updated in place level by level (the reference
+donates its buffer instead). Fused level evaluation (`fuse_levels`, the
+reference's `lax.scan` over all levels, `_scan_eval_step`) is a CUDA
+graph here: on the card a fused engine runs the loop once eagerly, captures
+it into one `torch.cuda.CUDAGraph` per batch shape and blind-rotation
+route, and replays that graph on every later call. A graph records
+launches of any width, so each level keeps its own slot count: the
+reference pads every level to one width so that one compiled executable
+serves the scan (`_stack_levels`), and each slot bootstraps alone, so the
+padding changes no word of a real wire. On the CPU fusing changes
+nothing: the loop runs eagerly on the plain versions.
+
 The reference's TPU-only mechanics are left out: executable caching and
-AOT (`cached_jit`), the fused `lax.scan` over levels and its chunking and
-crash clamps, the interpret switch and `shard_map`. Levels run as a Python
-loop. The wire tensor is cloned once per `evaluate` call and then updated
-in place level by level (the reference donates its buffer instead).
+AOT (`cached_jit`), the scan's chunking and crash clamps
+(`_max_chunk_levels`, the adaptive segments), the interpret switch and
+`shard_map`.
 """
 
 from __future__ import annotations
 
 import time
+from collections.abc import Callable
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -103,8 +117,62 @@ def _ready_step_lut(dsk, ready, new, valid, testv_and, delta):
     return (outs[..., :k, :] + outs[..., k:, :]) & M32
 
 
+@dataclass
+class _LevelGraph:
+    """One captured level program: `graph` reads and writes the static
+    wire buffer `wires`, and launches the blind-rotation wrapper `rotation`'s
+    kernel `launches` times a replay."""
+
+    graph: "torch.cuda.CUDAGraph"
+    wires: torch.Tensor
+    rotation: Callable
+    launches: int
+
+
+def _scan_eval_step(run, wires: torch.Tensor, rotation) -> tuple[torch.Tensor, _LevelGraph]:
+    """Fused level evaluation on the card: the counterpart of
+    `helm_tpu/engines/boolean.py:124` `_scan_eval_step` (and, over
+    several cycles, of `_scan_eval_cycles` :166), with a CUDA graph in
+    place of `lax.scan`.
+
+    `run(w)` is the level program: it updates the wire tensor `w` in place.
+    It first runs eagerly on a copy of `wires` on a side stream: that run's
+    words are returned, and it fills the lazy caches a capture may not
+    (the kernels' `dlopen`, `mb_pbs.cluster_slots`' occupancy query, the
+    key layouts `mb_server_key` / `ts_server_key`, whose pageable
+    host-to-device copies are illegal while capturing). Then `run` is
+    captured on the same stream over a static wire buffer of `wires`'
+    shape. Every kernel argument is baked into the graph: the key's tables
+    and the plan's index tensors, which the engine holds, and the
+    constants each launch reads on the host (`MbKernelKey.consts`, K6's CRT
+    constants), which never change for a key. The capture launches
+    nothing, so the launches `rotation` counted while capturing are taken
+    back and kept as the graph's `launches`, counted at each replay.
+    A capture that fails raises."""
+    dev = wires.device
+    main = torch.cuda.current_stream(dev)
+    out = wires.clone()
+    static = torch.empty_like(wires)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(main)  # after the clone: the side stream reads `out`
+    with torch.cuda.stream(side):
+        run(out)
+    main.wait_stream(side)
+    before = rotation.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        run(static)
+    launches = rotation.launches - before
+    rotation.launches = before
+    return out, _LevelGraph(graph, static, rotation, launches)
+
+
 class BooleanEngine:
-    """Gates- or LUT-mode encrypted circuit evaluator on a torch device."""
+    """Gates- or LUT-mode encrypted circuit evaluator on a torch device.
+
+    fuse_levels: True or False forces fused level evaluation (one CUDA
+    graph replay a call on the card) on or off; None decides at
+    `compile()` by the reference's rule (`fused` holds the decision)."""
 
     def __init__(
         self,
@@ -113,9 +181,14 @@ class BooleanEngine:
         seed=None,
         keys=None,
         device="cuda",
+        fuse_levels: bool | None = None,
     ):
         if mode not in ("gates", "lut"):
             raise ValueError(f"unknown mode {mode!r} (gates or lut)")
+        self.fuse_levels = fuse_levels
+        self.fused = False
+        self.replays = 0  # graph replays of fused evaluation, over the engine's life
+        self._graphs: dict = {}
         self.mode = mode
         self.device = torch.device(device)
         self.params = params or (DEFAULT_GATES if mode == "gates" else DEFAULT_LUT)
@@ -164,6 +237,18 @@ class BooleanEngine:
             bank = words(self.plan.testv_bank, dev) if self.plan.testv_bank is not None else None
             for d, lp in zip(self._dev_levels, self.plan.levels):
                 d["testv"] = bank[t(lp.testv_sel)] if lp.num_slots else None
+        fuse = self.fuse_levels
+        if fuse is None:
+            # the reference's auto-rule (boolean.py:354-366), so that the
+            # same circuits fuse in both packages: many levels, a narrow
+            # widest level and bounded pad waste (the reference pads every
+            # level to the widest; the graph does not, but the rule stays)
+            lps = self.plan.levels
+            S = max(max(lp.slot_in.shape[0] for lp in lps), 1)
+            real = max(sum(lp.slot_in.shape[0] for lp in lps), 1)
+            fuse = 8 <= len(lps) and S <= 256 and S * len(lps) <= 3 * real
+        self.fused = bool(fuse)
+        self._graphs = {}  # the graphs read the old plan's tensors
 
     # -- client role ---------------------------------------------------
     def _encode(self, v) -> np.ndarray:
@@ -240,29 +325,72 @@ class BooleanEngine:
         return words(arr, self.device)
 
     # -- evaluation ----------------------------------------------------
+    def _run_levels(self, wires: torch.Tensor, cycles: int = 1, verbose: bool = False) -> None:
+        """`cycles` passes of the level program, updating `wires` in place."""
+        total = len(self._dev_levels)
+        for _ in range(cycles):
+            for i, lp in enumerate(self._dev_levels):
+                if lp["slot_in"].shape[0] == 0:
+                    _lin_ops(wires, lp)
+                else:
+                    testv = lp["testv"] if self.mode == "lut" else self._testv_gates
+                    _level_step(self.dsk, wires, lp, testv)
+                if verbose:
+                    ns = self.plan.levels[i].num_slots
+                    print(
+                        f"  Evaluated gates in level [{i + 1}/{total}]"
+                        f" ({ns} PBS slots in one launch)"
+                    )
+
+    def _graph_eval(self, wires: torch.Tensor, cycles: int, verbose: bool) -> torch.Tensor:
+        """`cycles` passes of the level program on the card as one graph
+        replay (`_scan_eval_step`). The graphs are cached by the wires'
+        shape (the batch), the cycles and the blind-rotation route
+        (`mb_pbs.blind_rotation`, which follows HELM_TPU_MB_KERNEL at every
+        call); the first call for a key runs eagerly and captures. Each
+        graph, with its memory pool, is kept until the next `compile`."""
+        rotation = mb_pbs.blind_rotation(self.params)
+        key = (tuple(wires.shape), cycles, rotation)
+        total = len(self._dev_levels)
+        what = f"all {total} levels" + (f" x {cycles} cycles" if cycles > 1 else "")
+        entry = self._graphs.get(key)
+        if entry is None:
+            out, self._graphs[key] = _scan_eval_step(
+                lambda w: self._run_levels(w, cycles), wires, rotation
+            )
+            if verbose:
+                print(f"  Evaluated {what} eagerly, then captured them in 1 CUDA graph")
+            return out
+        entry.wires.copy_(wires)
+        entry.graph.replay()
+        entry.rotation.launches += entry.launches
+        self.replays += 1
+        if verbose:
+            print(f"  Evaluated {what} in 1 graph replay")
+        return entry.wires.clone()  # the next replay overwrites the static buffer
+
     def evaluate(self, wires: torch.Tensor, verbose: bool = False) -> torch.Tensor:
         assert self.plan is not None
+        if self.fused and wires.device.type == "cuda":
+            return self._graph_eval(wires, 1, verbose)
         wires = wires.clone()
-        total = len(self._dev_levels)
         t0 = time.perf_counter()
-        for i, lp in enumerate(self._dev_levels):
-            if lp["slot_in"].shape[0] == 0:
-                _lin_ops(wires, lp)
-            else:
-                testv = lp["testv"] if self.mode == "lut" else self._testv_gates
-                _level_step(self.dsk, wires, lp, testv)
-            if verbose:
-                ns = self.plan.levels[i].num_slots
-                print(
-                    f"  Evaluated gates in level [{i + 1}/{total}]"
-                    f" ({ns} PBS slots in one launch)"
-                )
+        self._run_levels(wires, 1, verbose)
         if verbose:
-            print(f"  {total} levels enqueued in {time.perf_counter() - t0:.3f} s")
+            print(f"  {len(self._dev_levels)} levels enqueued in {time.perf_counter() - t0:.3f} s")
         return wires
 
     def evaluate_cycles(self, wires: torch.Tensor, cycles: int) -> torch.Tensor:
-        """`cycles` sequential cycles: a loop of `evaluate` calls."""
+        """`cycles` sequential cycles. On the card all of them are one graph
+        replay (`_scan_eval_step` over cycles x levels), whatever
+        `fuse_levels` says, as the reference's `evaluate_cycles` scans them
+        in one dispatch (boolean.py:734); the words are those of `cycles`
+        `evaluate` calls, since the state advances through the wires (DFF
+        copies are plan levels). A circuit with the READY protocol, and
+        every circuit on the CPU, loops `evaluate`."""
+        assert self.plan is not None
+        if wires.device.type == "cuda" and not self.has_ready():
+            return self._graph_eval(wires, cycles, False)
         for _ in range(cycles):
             wires = self.evaluate(wires)
         return wires

@@ -19,9 +19,13 @@ malformed CSV to `<watch>/failed/` with a note of what was wrong.
 `--max-batches` exits after N batches; `--supervise` restarts a worker
 that dies. The flags are the reference's, less `--backend` (the kernels
 follow the device and HELM_TPU_MB_KERNEL), plus `--device` (default
-`cuda`; `cpu` runs the plain torch versions). Not ported, and refused
-with a pointer to ROADMAP.md: `--batch auto` (the TPU-calibrated cost
-model of `helm_tpu/batching.py`) and `--fuse-levels` (fused evaluation).
+`cuda`; `cpu` runs the plain torch versions). `--fuse-levels` /
+`--no-fuse-levels` force fused level evaluation on or off (default: the
+engine's auto-rule): on the card the first batch runs eagerly and captures
+one CUDA graph for the batch shape, and every later batch is one replay of
+it (the batch line says "graph replay"). Not ported, and refused with a
+pointer to ROADMAP.md: `--batch auto` (the TPU-calibrated cost model of
+`helm_tpu/batching.py`).
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--batch", default="8",
         help="vectors per evaluation (a fixed shape; 'auto' is not ported, "
-        "ROADMAP.md queue 1 item 7)",
+        "ROADMAP.md item '--batch auto: an H100 serving cost model')",
     )
     ap.add_argument("--max-batch", type=int, default=16, help="upper bound for --batch auto")
     ap.add_argument(
@@ -76,7 +80,8 @@ def build_argparser() -> argparse.ArgumentParser:
     # test hook: hard-exit(17) after N batches (restart-path testing)
     ap.add_argument(
         "--fuse-levels", action="store_const", const=True, default=None,
-        help="fused level evaluation (not ported, ROADMAP.md queue 1 item 4)",
+        help="force level fusion: one CUDA graph replay a batch (default: auto "
+        "for narrow/deep circuits)",
     )
     ap.add_argument("--no-fuse-levels", dest="fuse_levels", action="store_const", const=False)
     ap.add_argument(
@@ -123,6 +128,7 @@ def _make_engine(args, netlist, device):
     return BooleanEngine(
         mode="lut" if netlist.has_luts else "gates",
         params=params, seed=args.seed, keys=keys, device=device,
+        fuse_levels=args.fuse_levels,
     )
 
 
@@ -221,13 +227,8 @@ def main(argv=None) -> int:
     if str(args.batch) == "auto":
         raise SystemExit(
             "--batch auto is not ported: helm_tpu/batching.py is the TPU-calibrated "
-            "cost model (ROADMAP.md queue 1 item 7, 'What the port leaves out'); "
-            "pass a fixed --batch"
-        )
-    if args.fuse_levels:
-        raise SystemExit(
-            "--fuse-levels is not ported (fused evaluation, ROADMAP.md queue 1 item 4); "
-            "the default runs the level loop"
+            "cost model (ROADMAP.md item '--batch auto: an H100 serving cost model', "
+            "'What the port leaves out'); pass a fixed --batch"
         )
     import torch
 
@@ -247,9 +248,10 @@ def main(argv=None) -> int:
     engine = _make_engine(args, netlist, device)
     engine.compile(netlist)
     batch = int(args.batch)
+    fused = getattr(engine, "fused", False)  # the arith engine has no level fusion
     print(
         f"[serve] engine ready in {time.time() - t0:.1f}s "
-        f"(batch={batch}, device {device}, watching {args.watch})",
+        f"(batch={batch}, device {device}, levels fused: {fused}, watching {args.watch})",
         flush=True,
     )
 
@@ -298,6 +300,7 @@ def main(argv=None) -> int:
         # a fixed batch shape: pad with repeats of the first vector
         padded = vecs + [vecs[0]] * (batch - len(vecs))
         t0 = time.time()
+        replays = getattr(engine, "replays", 0)
         try:
             outs = engine.decrypt_outputs(engine.evaluate(engine.encrypt_inputs(padded)))
         except Exception as e:
@@ -313,9 +316,10 @@ def main(argv=None) -> int:
             dst = os.path.join(args.outdir, os.path.splitext(name)[0] + ".out.csv")
             csv_io.write_output_wires(dst, out)
             shutil.move(os.path.join(args.watch, name), os.path.join(done_dir, name))
+        replayed = ", graph replay" if getattr(engine, "replays", 0) > replays else ""
         print(
             f"[serve] batch {batches}: {len(ok_names)} vectors in {dt:.3f}s "
-            f"({dt / len(ok_names):.3f}s/vector)",
+            f"({dt / len(ok_names):.3f}s/vector{replayed})",
             flush=True,
         )
         batches += 1

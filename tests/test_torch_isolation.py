@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from helm_tpu import refbound as ref_refbound
 from helm_tpu.circuit import plan as ref_plan
 from helm_tpu.circuit import verilog as ref_verilog
 from helm_tpu.circuit.graph import Circuit as RefCircuit
@@ -28,6 +29,7 @@ from helm_tpu.fhe import modring as ref_modring
 from helm_tpu.fhe import security as ref_security
 from helm_tpu.io import csv_io as ref_csv_io
 from helm_tpu_torch import params as P
+from helm_tpu_torch import refbound
 from helm_tpu_torch.circuit import plan, verilog
 from helm_tpu_torch.circuit.graph import Circuit
 from helm_tpu_torch.fhe import csprng, modring, pbs, security
@@ -221,3 +223,18 @@ def test_csv_io_equals_the_reference():
                        ("chi_squared_arith_1.inputs.csv", "u32")):
         path = str(ROOT / "benchmarks/test-cases" / name)
         assert csv_io.read_input_wires(path, kind) == ref_csv_io.read_input_wires(path, kind)
+
+
+@pytest.mark.parametrize("name", ["2-bit-adder", "c880-like", "aes128-gates", "s27", "8-bit-adder-lut-3-1"])
+def test_refbound_equals_the_reference(name):
+    """The bench's reference bounds (the port's trimmed copy of
+    helm_tpu/refbound.py) on tests/test_refbound.py's netlists: the same
+    level profile and bounds, at the default and at other cores and
+    cycles."""
+    path = str(ROOT / "benchmarks/netlists" / f"{name}.v")
+    mine = refbound.level_bootstrap_profile(Circuit.from_netlist(verilog.read_verilog_file(path)))
+    ref = ref_refbound.level_bootstrap_profile(RefCircuit.from_netlist(ref_verilog.read_verilog_file(path)))
+    assert mine == ref
+    for kw in ({}, {"cores": 7, "cycles": 3}):
+        assert refbound.bounds_for_netlist(path, **kw) == ref_refbound.bounds_for_netlist(path, **kw)
+    assert refbound.reference_bounds(mine, 16, 0.02, 2) == ref_refbound.reference_bounds(ref, 16, 0.02, 2)

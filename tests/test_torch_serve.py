@@ -166,14 +166,32 @@ def test_serve_supervisor_restarts_after_crash(tmp_path):
     assert not list(watch.glob("*.csv"))
 
 
+# The ids are kept from before --fuse-levels was ported, when the second
+# case checked that it exited with a ROADMAP pointer. Now extra1 is a
+# positive --fuse-levels run (fused level evaluation: on the CPU the level
+# loop, on the card one CUDA graph replay a batch).
 @pytest.mark.parametrize("extra,what", [
     (["--batch", "auto"], "--batch auto is not ported.*ROADMAP.md"),
-    (["--fuse-levels"], "--fuse-levels is not ported.*ROADMAP.md"),
-])
-def test_serve_unported_options_point_to_roadmap(tmp_path, extra, what):
-    with pytest.raises(SystemExit, match=what):
-        _serve(tmp_path / "in", tmp_path / "out", "--test-params", *extra)
-    assert not (tmp_path / "in").exists()  # refused before any work
+    (["--fuse-levels"], None),
+], ids=["extra0---batch auto is not ported.*ROADMAP.md", "extra1---fuse-levels is not ported.*ROADMAP.md"])
+def test_serve_unported_options_point_to_roadmap(tmp_path, capsys, extra, what):
+    """--batch auto is refused before any work; --fuse-levels runs the
+    2-bit adder to the plaintext oracle with a fused engine."""
+    watch, outd = tmp_path / "in", tmp_path / "out"
+    if what is not None:
+        with pytest.raises(SystemExit, match=what):
+            _serve(watch, outd, "--test-params", *extra)
+        assert not watch.exists()  # refused before any work
+        return
+    watch.mkdir()
+    vecs = [dict(zip(WIRES, bits)) for bits in ((1, 0, 1, 1, 0), (0, 1, 1, 0, 1))]
+    for i, vec in enumerate(vecs):
+        _write(watch / f"v{i}.csv", vec)
+    assert _serve(watch, outd, "--test-params", "--batch", "2", "--max-batches", "1", *extra) == 0
+    assert "levels fused: True" in capsys.readouterr().out
+    for i, vec in enumerate(vecs):
+        assert _read(outd / f"v{i}.out.csv") == _oracle(vec)
+        assert (watch / "done" / f"v{i}.csv").exists()
 
 
 def test_serve_defaults_to_the_card(tmp_path, monkeypatch):
