@@ -19,8 +19,9 @@ Phases, in order (each prints one line, with its seconds):
           version on the card, at TEST_PARAMS_K3, at tiny sets with N=1024,
           N=2048 and grouping 4, at GATES_128_K3 at the main path's widths
           (G=8 to 1024, ragged G=37 and 200) and at LUT_128_K2 (k=2, N=1024,
-          9 gadget rows) at the LUT adder's level width and G=256, and at
-          ARITH_128_MB2 (N=2048, 6 rows, PRIMES with 65537) at a narrow
+          9 gadget rows) and LUT_128_MB2 (k=1, N=2048, 6 rows at base 2^8,
+          BASELINE's LUT set) at the LUT adder's level width (G=2) and G=256,
+          and at ARITH_128_MB2 (N=2048, 6 rows, PRIMES with 65537) at a narrow
           merged-round width (G=8) and a wide one (G=1024): the words must be
           equal (tolerance 0, the arithmetic is exact); prints both times
   k6      the prime-split blind-rotation kernel (K6: K1's body with the CRT
@@ -52,8 +53,9 @@ Phases, in order (each prints one line, with its seconds):
           tile plan printed per width) against its plain torch
           version the same way, at TEST_PARAMS (N=64), TEST_PARAMS_LUT
           (N=128), a tiny k=3 grouping-1 set, GATES_TPU at G=1 to 1024,
-          GATES_PARAMS (6 rows) at G=37 and LUT_PARAMS (N=2048) at the LUT
-          adder's level width and G=37 (per-gate test polynomials)
+          GATES_PARAMS (6 rows) at G=37, LUT_PARAMS (N=2048) at the LUT
+          adder's level width and G=37 and ARITH_PARAMS (N=2048, 6 rows) at
+          G=8 and 1024 (per-gate test polynomials)
   batch   main path: G=1024 AND gates at GATES_128_K3 (K1, keys seed 2024)
           through mb_pbs.bootstrap, decrypted against the truth table;
           bootstraps/s
@@ -77,7 +79,13 @@ Phases, in order (each prints one line, with its seconds):
           ARITH_128_MB2 (K1) for the four recorded vector sets
           chi_squared_arith_{1..4}, one vector at a time, then as one batch
           of 4: each against its golden CSV and the Circuit.evaluate_arith
-          oracle; s/vector, merged rounds and slots
+          oracle; s/vector, merged rounds and slots. Then chi_squared_arith_1
+          at ARITH_PARAMS (grouping 1: K2) against its golden CSV and the
+          oracle
+  baseline main path: helm_tpu_torch.tools.verify_baseline.main([]) in
+          process: the five BASELINE configs at GATES_128_K3, LUT_128_MB2 and
+          ARITH_128_MB2 on the card must print ALL BIT-EXACT; seconds per
+          config
   ps      main path under HELM_TPU_MB_KERNEL=ps (K6): the G=1024 AND batch
           and c880-like at GATES_128_K3 fused and eager as in c880 (truth
           table, equal words, golden CSV + oracle; K6 launches inside the
@@ -90,15 +98,26 @@ Phases, in order (each prints one line, with its seconds):
           replay, K4 inside it) and chi-squared u32 at ARITH_128_MB2 (the four
           recorded vectors, --batch 4 --max-batches 1): every output against
           its golden CSV or the oracle, every input moved to done/; s/vector
-          per batch; K4 must launch and K1 must not
+          per batch; K4 must launch and K1 must not. Then, under the default
+          kernel (K1), a fused c880-like engine at GATES_128_K3 at B = 1, 2,
+          4, 7, 8, 12, 16 and the model's pick (the golden vector and 15
+          from a numpy seed; first
+          call captures, then the median of 3 replays, every output against
+          the oracle): the measured s/vector beside the cost model's
+          (helm_tpu_torch/batching.py), the model's constants fitted to the
+          measurement, and the model's choice; then the daemon under
+          --batch auto --max-batch 16 on two batches' worth of c880-like
+          requests (the second batch a graph replay), which must choose the
+          model's batch and reproduce the golden CSV and the oracle
   sweep   helm_tpu_torch.tools.mb_sweep at GATES_128_K3, G = 8, 64 and 1024,
           for LAYOUT fs (K1), ps (K6), ts (K4) and gm (K3, whose only path
           this is): one table of rot/s
-  cli     python -m helm_tpu_torch.cli --device cuda (default sets) on the
-          2-bit adder, the LUT adder and chi-squared u32 (-a u32,
-          chi_squared_arith_1) must reproduce their golden CSVs, and
-          chi-squared u32 with -I, the four recorded vectors in one batch,
-          their four golden CSVs
+  cli     python -m helm_tpu_torch.cli --device cuda (default sets), four
+          subprocesses started together: the 2-bit adder (with --profile
+          DIR: its Chrome trace must name rotate_tiles), the LUT adder and
+          chi-squared u32 (-a u32, chi_squared_arith_1) must reproduce their
+          golden CSVs, and chi-squared u32 with -I, the four recorded vectors
+          in one batch, their four golden CSVs
   bench   python -m helm_tpu_torch.bench in a subprocess at its defaults
           but BENCH_MEDIAN_N=3 and no key cache: its two JSON lines,
           c880-like_wall_clock_per_vector and, last,
@@ -115,7 +134,8 @@ Phases, in order (each prints one line, with its seconds):
           replay
 
 The kernels' launch counters are set to 0 just before each main-path phase
-(batch, c880, g1, lut, arith, ps, serve, sweep) and read just after it;
+(batch, c880, g1, lut, arith, baseline, ps, serve, sweep) and read just
+after it;
 the kernel JSON line reports the sums. A graph replay launches its
 kernels without calling their wrappers: the engine adds, at each replay,
 the launches the wrapper counted while the graph was captured (and takes
@@ -145,10 +165,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = (
-    "device", "build", "k1", "k6", "k4", "k3", "k2", "batch", "c880", "g1", "lut", "arith", "ps",
-    "serve", "sweep", "cli", "bench", "profile",
+    "device", "build", "k1", "k6", "k4", "k3", "k2", "batch", "c880", "g1", "lut", "arith",
+    "baseline", "ps", "serve", "sweep", "cli", "bench", "profile",
 )
-MAIN_PATH = ("batch", "c880", "g1", "lut", "arith", "ps", "serve", "sweep")
+MAIN_PATH = ("batch", "c880", "g1", "lut", "arith", "baseline", "ps", "serve", "sweep")
 KERNELS = ("blind_rotate_mb", "blind_rotate_sb", "blind_rotate_ps", "blind_rotate_ts", "blind_rotate_gm")
 
 #: H100 SXM peaks used for bound_ms: 132 SMs x 64 INT32 lanes x 1.98 GHz
@@ -320,9 +340,9 @@ class Smoke:
             k.update(launches=0, max_abs_err=None, ms=None, plain_ms=None,
                      bound_ms=None, bound_by=None, library_ms=None)
         self.card = ""
-        #: kernel inputs and plain outputs by (set, G, per-gate test polys):
-        #: (lwe_in, testv, plain ms, words), so that K1 and K6, which
-        #: compute one function, share them
+        #: kernel inputs and plain outputs by (set, per-gate test polys), at
+        #: the set's widest G: (lwe_in, testv, plain ms, words), so that the
+        #: kernels, which compute one function, share them
         self.plain = {}
 
     def keys_for(self, params, seed):
@@ -364,7 +384,11 @@ class Smoke:
         (params, seed, Gs, per-gate testv, Gs where `plain` runs even when
         another kernel's plain version already ran these inputs, and must
         agree with it); record the timed case's numbers. `detail(params, G)`
-        adds to each width's line."""
+        adds to each width's line. The inputs of a set are drawn once, at
+        its widest G, and each narrower G takes their first G rows: every
+        gate rotates alone, so the plain words of those rows are the widest
+        run's (the plain versions, a host loop of small launches, then run
+        once a set)."""
         import numpy as np
         import torch
 
@@ -375,26 +399,28 @@ class Smoke:
         notes = []
         for params, seed, gs, per_gate, fresh in cases:
             ck, _, dsk = self.keys_for(params, seed)
-            for G in gs:
-                key = (params.name, G, per_gate)
-                if key in self.plain:  # the same inputs as the earlier kernel's
-                    x, tv, plain_ms, ref = self.plain[key]
+            top = max(gs)
+            key = (params.name, per_gate)
+            if key not in self.plain or self.plain[key][0].shape[0] < top:
+                lin, _ = _ands(ck, top, 100 + top)
+                x = words(lin, self.device)
+                if per_gate:
+                    rng = np.random.default_rng(top)
+                    tv = words(rng.integers(0, 1 << 32, size=(top, params.N), dtype=np.uint64)
+                               .astype(np.uint32), self.device)
                 else:
-                    lin, _ = _ands(ck, G, 100 + G)
-                    x = words(lin, self.device)
-                    if per_gate:
-                        rng = np.random.default_rng(G)
-                        tv = words(rng.integers(0, 1 << 32, size=(G, params.N), dtype=np.uint64)
-                                   .astype(np.uint32), self.device)
-                    else:
-                        tv = words(pbs.gates_test_poly(params), self.device)
-                if key not in self.plain or G in fresh:
-                    plain_ms, ref = _time_ms(lambda: plain(dsk, x, tv), warm=False)
-                    if key in self.plain:
-                        assert torch.equal(ref, self.plain[key][3]), (
-                            f"{plain.__name__} != the earlier plain version at {params.name} G={G}"
-                        )
-                    self.plain[key] = (x, tv, plain_ms, ref)
+                    tv = words(pbs.gates_test_poly(params), self.device)
+                self.plain[key] = (x, tv, *_time_ms(lambda: plain(dsk, x, tv), warm=False))
+            x_all, tv_all, all_ms, ref_all = self.plain[key]
+            for G in gs:
+                x, ref = x_all[:G], ref_all[:G]
+                tv = tv_all[:G] if per_gate else tv_all
+                plain_ms = all_ms if G == x_all.shape[0] else None
+                if G in fresh:
+                    plain_ms, own = _time_ms(lambda: plain(dsk, x, tv), warm=False)
+                    assert torch.equal(own, ref), (
+                        f"{plain.__name__} != the earlier plain version at {params.name} G={G}"
+                    )
                 ms, got = _time_ms(lambda: kernel(dsk, x, tv), reps=3)
                 err = int((got - ref).abs().max().item())
                 worst = max(worst, err)
@@ -405,8 +431,9 @@ class Smoke:
                         f"{bad}: {int(got.reshape(-1)[bad])} vs {int(ref.reshape(-1)[bad])}"
                     )
                 b_ms, b_by = bound_ms(params, G, tv.shape[0])
+                vs = f"{plain_ms:.6f} ms" if plain_ms is not None else f"(rows of its G={x_all.shape[0]} run)"
                 notes.append(
-                    f"{params.name} G={G}: {ms:.6f} ms vs plain {plain_ms:.6f} ms, "
+                    f"{params.name} G={G}: {ms:.6f} ms vs plain {vs}, "
                     f"bound {b_ms:.6f} ms ({b_by})" + (f", {detail(params, G)}" if detail else "")
                 )
                 print(f"[{label.lower()}] {notes[-1]} — equal (tolerance 0)", flush=True)
@@ -426,8 +453,9 @@ class Smoke:
         # GATES_128_K3 at the main path's widths: c880-like levels are 8, 16
         # or 32 slots for one vector and 64-256 for a batch of 8, the AND
         # batch is 1024; 37 and 200 are ragged against the gate chunks.
-        # LUT_128_K2 (k=2, 9 rows, N=1024): the LUT adder's levels are 2
-        # slots wide, each with its own test polynomial. ARITH_128_MB2 (6
+        # LUT_128_K2 (k=2, 9 rows, N=1024) and LUT_128_MB2 (k=1, 6 rows at
+        # base 2^8, N=2048): the LUT adder's levels are 2 slots wide, each
+        # with its own test polynomial. ARITH_128_MB2 (6
         # rows x 2048 words: 48 KB per decompose block): chi-squared u32's
         # merged rounds, each slot with its group's test polynomial
         return self._check_kernel(
@@ -491,6 +519,7 @@ class Smoke:
             *((w, 9, (5,), False, (5,)) for w in wide),
             (P.GATES_128_K3, 2024, (8, 16, 32, 37, 64, 128, 200, 256, 1024), False, (1024,)),
             (P.LUT_128_K2, 2025, (2, 256), True, ()),
+            (P.LUT_128_MB2, 2032, (2, 256), True, ()),
             (P.ARITH_128_MB2, 2030, (8, 1024), True, ()),
         )
 
@@ -548,7 +577,8 @@ class Smoke:
         # GATES_TPU at every width phase g1 gives K2: 1-4 slots (2-bit
         # adder, s27), 8-32 (c880-like), 64-256 (c880-like, 8 vectors),
         # 1024 (the AND batch); 37 is ragged. The LUT adder's levels are 2
-        # slots wide
+        # slots wide. ARITH_PARAMS (N=2048, 6 rows): chi-squared's merged
+        # rounds at grouping 1, narrow and wide
         k3_g1 = dataclasses.replace(P.TEST_PARAMS_K3, name="test_tiny_k3_g1", grouping=1)
         cases = (
             (P.TEST_PARAMS, 11, (5, 37), False, ()),
@@ -557,6 +587,7 @@ class Smoke:
             (P.GATES_TPU, 2026, (1, 2, 4, 8, 16, 32, 37, 64, 128, 256, 1024), False, ()),
             (P.GATES_PARAMS, 2027, (37,), False, ()),
             (P.LUT_PARAMS, 2028, (2, 37), True, ()),
+            (P.ARITH_PARAMS, 2033, (8, 1024), True, ()),
         )
         return self._check_kernel(
             "blind_rotate_sb", "K2", pbs.blind_rotate, sb_pbs.blind_rotate_sb,
@@ -764,6 +795,7 @@ class Smoke:
         from helm_tpu_torch import ArithEngine
         from helm_tpu_torch import params as P
         from helm_tpu_torch.engines import radix
+        from helm_tpu_torch.ops import sb_pbs
 
         p = P.ARITH_128_MB2
         ck, sk, _ = self.keys_for(p, 2030)
@@ -797,10 +829,50 @@ class Smoke:
         got, dt, rounds, slots = run([inputs for inputs, _ in sets])
         for i, (g, (_, golden)) in enumerate(zip(got, sets), 1):
             assert g == golden, f"chi-squared u32 batch vector {i} {g} != golden {golden}"
-        return (
+        msg = (
             f"{p.name} chi_squared u32, golden CSVs + oracle ok: {float(np.mean(times)):.6f} s/vector "
             f"one at a time ({'; '.join(notes)}); batch of 4 ok, {dt / 4:.6f} s/vector, "
             f"{rounds} merged rounds, {slots} slots"
+        )
+        # grouping 1 (K2): the reference's tfhe-rs-mirroring arith set
+        p = P.ARITH_PARAMS
+        ck, sk, _ = self.keys_for(p, 2033)
+        eng = ArithEngine("u32", params=p, keys=(ck, sk), device=self.device)
+        eng.compile(nl)
+        inputs, golden = sets[0]
+        n0 = sb_pbs.blind_rotate_sb.launches
+        got, dt, rounds, slots = run(inputs)
+        assert got == golden, f"chi-squared u32 set 1 at {p.name} {got} != golden {golden}"
+        assert got == _oracle_arith(nl, inputs, 32), f"chi-squared u32 set 1 at {p.name} differs from the oracle"
+        assert sb_pbs.blind_rotate_sb.launches - n0 == rounds, f"{p.name}: K2 launches != merged rounds"
+        return msg + (f"; {p.name} (grouping 1, K2) set 1 golden CSV + oracle ok: {dt:.6f} s/vector, "
+                      f"{rounds} merged rounds, {slots} slots")
+
+    def phase_baseline(self):
+        """helm_tpu_torch.tools.verify_baseline.main([]) in process (so the
+        launch counters see it), with the keys made so far: the five
+        BASELINE configs on the card at GATES_128_K3, LUT_128_MB2 and
+        ARITH_128_MB2 must print ALL BIT-EXACT and return 0."""
+        import io
+        import re
+
+        from helm_tpu_torch.tools import verify_baseline
+
+        # the keys of phases k1 and arith where a set repeats (the tool draws
+        # the others from its own seed)
+        keys = {name: (ck, sk) for name, (ck, sk, _) in self.keys.items()}
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = verify_baseline.main([], keys)
+        out = buf.getvalue()
+        print(out, end="", flush=True)
+        assert rc == 0, f"verify_baseline exited {rc}"
+        assert out.strip().splitlines()[-1] == "ALL BIT-EXACT", "verify_baseline did not print ALL BIT-EXACT"
+        secs = re.findall(r"^    \((\w+), \w+, ([0-9.]+)s\)$", out, re.M)
+        names = ("2-bit-adder", "s27 x3", "8-bit-adder-lut-3-1", "c880-like", "chi_squared u32 x4")
+        assert len(secs) == len(names), secs
+        return "verify_baseline ALL BIT-EXACT; seconds per config (keygen included where a set is new): " + ", ".join(
+            f"{n} {t} s ({ps})" for n, (ps, t) in zip(names, secs)
         )
 
     def phase_ps(self):
@@ -896,7 +968,119 @@ class Smoke:
 
         assert ts_pbs.blind_rotate_ts.launches > 0, "serve under HELM_TPU_MB_KERNEL=ts never launched K4"
         assert mb_pbs.blind_rotate_mb.launches == 0, "serve under HELM_TPU_MB_KERNEL=ts launched K1"
-        return "python -m helm_tpu_torch.serve under HELM_TPU_MB_KERNEL=ts: " + "; ".join(notes)
+        return "python -m helm_tpu_torch.serve under HELM_TPU_MB_KERNEL=ts: " + "; ".join(notes) + (
+            "; " + self._serve_auto())
+
+    def _serve_auto(self):
+        """--batch auto under the default kernel (K1): first the cost model
+        beside the fused engine's measured s/vector, then the daemon on two
+        batches' worth of c880-like requests, which must pick the model's
+        batch."""
+        import io
+        import re
+
+        from helm_tpu_torch import serve
+        from helm_tpu_torch.io import csv_io
+        from helm_tpu_torch.ops import mb_pbs
+
+        best = self._batch_table()
+        with tempfile.TemporaryDirectory() as td:
+            watch, outd = os.path.join(td, "in"), os.path.join(td, "out")
+            os.makedirs(watch)
+            vecs = self._c880_requests(2 * best)
+            for i, vec in enumerate(vecs):
+                with open(os.path.join(watch, f"r{i:02d}.csv"), "w") as f:
+                    f.write("wire,value\n" + "".join(f"{w},{int(v)}\n" for w, v in vec.items()))
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = serve.main(["-v", os.path.join(ROOT, "benchmarks/netlists/c880-like.v"), "--watch", watch,
+                                 "--outdir", outd, "--params", "gates_128_k3", "--seed", "2024",
+                                 "--batch", "auto", "--max-batch", "16",
+                                 "--max-batches", "2", "--device", self.device])
+            out = buf.getvalue()
+            print(out, end="", flush=True)
+            assert rc == 0, f"serve --batch auto exited {rc}"
+            chosen = re.findall(r"--batch auto -> (\d+) \(([0-9]+)% fill", out)
+            assert chosen and int(chosen[0][0]) == best, f"serve --batch auto chose {chosen}, the model {best}"
+            assert not [f for f in os.listdir(watch) if f.endswith(".csv")], "inputs left in the watch dir"
+            nl = _netlist("c880-like.v")
+            for i, vec in enumerate(vecs):
+                got = csv_io.read_input_wires(os.path.join(outd, f"r{i:02d}.out.csv"), "bool")
+                assert got == _oracle(nl, vec), f"serve --batch auto request {i} differs from the oracle"
+            got = csv_io.read_input_wires(os.path.join(outd, "r00.out.csv"), "bool")
+            assert got == _golden("c880-like.outputs.csv"), "serve --batch auto differs from the golden CSV"
+            per = re.findall(r"\(([0-9.]+)s/vector(, graph replay)?\)", out)
+            assert [bool(r) for _, r in per] == [False, True], f"serve --batch auto batches: {per}"
+        assert mb_pbs.blind_rotate_mb.launches > 0, "serve --batch auto never launched K1"
+        return (f"--batch auto --max-batch 16 on {len(vecs)} c880-like requests: batch {best} ({chosen[0][1]}% "
+                f"fill), the second batch one graph replay, golden CSV + oracle ok, s/vector per batch "
+                f"{[float(t) for t, _ in per]}")
+
+    def _c880_requests(self, n):
+        """c880-like's golden input vector and n - 1 from a numpy seed (the
+        first 16 are those of the calibration table)."""
+        import numpy as np
+
+        nl = _netlist("c880-like.v")
+        rng = np.random.default_rng(16)
+        return [_golden("c880-like.inputs.csv")] + [
+            {w: bool(rng.integers(0, 2)) for w in sorted(nl.inputs)} for _ in range(n - 1)
+        ]
+
+    def _batch_table(self):
+        """The fused c880-like engine at GATES_128_K3 (K1) at B = 1, 2, 4,
+        7, 8, 12, 16 and the model's choice (7: the model puts it below 8):
+        the measured s/vector (the median
+        of 3 graph replays after the capturing call; every output against the
+        oracle) beside the cost model's, the model's constants fitted to the
+        measurement, and the model's choice (returned) beside the measured
+        best."""
+        import numpy as np
+
+        from helm_tpu_torch import BooleanEngine, batching
+        from helm_tpu_torch import params as P
+
+        p = P.GATES_128_K3
+        ck, sk, _ = self.keys_for(p, 2024)
+        nl = _netlist("c880-like.v")
+        eng = BooleanEngine(mode="gates", params=p, keys=(ck, sk), device=self.device)
+        eng.compile(nl)
+        assert eng.fused, "the auto-rule did not fuse c880-like"
+        vecs = self._c880_requests(16)
+        best, table = batching.suggest_batch(eng, 16)
+        measured, launches = {}, {}
+        for B in sorted({1, 2, 4, 7, 8, 12, 16, best}):
+            wires = eng.encrypt_inputs(vecs[:B])
+            eng.evaluate(wires)  # the eager run and the capture
+            times = []
+            for _ in range(3):
+                _sync()
+                t0 = time.perf_counter()
+                out = eng.evaluate(wires)
+                _sync()
+                times.append(time.perf_counter() - t0)
+            for i, o in enumerate(eng.decrypt_outputs(out)):
+                assert o == _oracle(nl, vecs[i]), f"c880-like at batch {B}, vector {i}, differs from the oracle"
+            measured[B] = float(np.median(times)) / B
+            launches[B] = batching.engine_launches(eng, B)
+        gate_s, ks, level = batching.calibrate(launches, measured)
+        lines = ["| B | measured s/vector | model gate-times/vector | model s/vector | fill | refit s/vector |",
+                 "|---|---|---|---|---|---|"]
+        for B, m in measured.items():
+            cost, fill = batching.plan_cost(launches[B], B)
+            refit, _ = batching.plan_cost(launches[B], B, ks, level)
+            lines.append(f"| {B} | {m:.6f} | {cost:.4f} | {cost * batching.GATE_S:.6f} | {fill:.3f} | "
+                         f"{refit * gate_s:.6f} |")
+        print("\n".join(lines), flush=True)
+        fastest = min(measured, key=measured.get)
+        ratio = measured[best] / measured[fastest]
+        print(f"[serve] cost model: KS_GATE_TIMES {batching.KS_GATE_TIMES}, LEVEL_GATE_TIMES "
+              f"{batching.LEVEL_GATE_TIMES}, GATE_S {batching.GATE_S}; fitted to this table: gate-time "
+              f"{gate_s:.6e} s, KS_GATE_TIMES {ks:.6f}, LEVEL_GATE_TIMES {level:.6f}; clusters a wave "
+              f"{sorted({x.slots for xs in launches.values() for x in xs})}; the model picks batch {best} "
+              f"(of 1..16: {[(t['batch'], t['cost_per_vector']) for t in table]}), the measured best of the "
+              f"table is {fastest} (the pick's s/vector {ratio:.3f}x the best's)", flush=True)
+        return best
 
     def phase_sweep(self):
         """helm_tpu_torch.tools.mb_sweep at GATES_128_K3 for the four
@@ -1035,53 +1219,72 @@ class Smoke:
                 f"{rate['value']} bootstraps/s, on {rate['capture']}")
 
     def phase_cli(self):
+        """The CLI in four subprocesses, started together (each pays its own
+        keygen on the host): the 2-bit adder with --profile DIR, the LUT
+        adder, chi-squared u32 with -i and with -I (the four recorded
+        vectors); every output against its golden CSV."""
         from helm_tpu_torch.io import csv_io
 
+        runs = {
+            "2-bit-adder": ("2-bit-adder", "2-bit-adder.inputs.csv", "2-bit-adder.outputs.csv", "bool"),
+            "8-bit-adder-lut-3-1": ("8-bit-adder-lut-3-1", "8-bit-adder.inputs.csv",
+                                    "8-bit-adder-lut-3-1.outputs.csv", "bool"),
+            "chi_squared_arith": ("chi_squared_arith", "chi_squared_arith_1.inputs.csv",
+                                  "chi_squared_arith_1.outputs.csv", "u32"),
+        }
+        files = [f"benchmarks/test-cases/chi_squared_arith_{i}.inputs.csv" for i in range(1, 5)]
         notes = []
-        for net, inputs, golden, kind in (
-            ("2-bit-adder", "2-bit-adder.inputs.csv", "2-bit-adder.outputs.csv", "bool"),
-            ("8-bit-adder-lut-3-1", "8-bit-adder.inputs.csv", "8-bit-adder-lut-3-1.outputs.csv", "bool"),
-            ("chi_squared_arith", "chi_squared_arith_1.inputs.csv", "chi_squared_arith_1.outputs.csv", "u32"),
-        ):
-            with tempfile.TemporaryDirectory() as td:
-                out = os.path.join(td, "out.csv")
-                res = subprocess.run(
-                    [
-                        sys.executable, "-m", "helm_tpu_torch.cli",
-                        "-v", f"benchmarks/netlists/{net}.v",
-                        "-i", f"benchmarks/test-cases/{inputs}",
-                        "-o", out, "--device", self.device,
-                        *(["-a", kind] if kind != "bool" else []),
-                    ],
-                    cwd=ROOT, capture_output=True, text=True, timeout=600,
-                )
-                if res.returncode != 0:
-                    raise AssertionError(
-                        f"CLI failed on {net} ({res.returncode}):\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}"
-                    )
-                got = csv_io.read_input_wires(out, kind)
-            exp = _golden(golden, kind)
-            assert got == exp, f"CLI outputs on {net} {got} != golden {exp}"
-            notes.append(f"{net}{'' if kind == 'bool' else ' -a ' + kind} --device cuda reproduces {golden}")
         with tempfile.TemporaryDirectory() as td:
-            out = os.path.join(td, "out.csv")
-            files = [f"benchmarks/test-cases/chi_squared_arith_{i}.inputs.csv" for i in range(1, 5)]
-            res = subprocess.run(
-                [sys.executable, "-m", "helm_tpu_torch.cli", "-v", "benchmarks/netlists/chi_squared_arith.v",
-                 "-a", "u32", "-I", *files, "-o", out, "--device", self.device],
-                cwd=ROOT, capture_output=True, text=True, timeout=600,
-            )
-            if res.returncode != 0:
-                raise AssertionError(f"CLI -I failed ({res.returncode}):\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+            prof = os.path.join(td, "prof")
+            argvs = {
+                name: ["-v", f"benchmarks/netlists/{net}.v", "-i", f"benchmarks/test-cases/{inputs}",
+                       "-o", os.path.join(td, f"{name}.csv"), *(["-a", kind] if kind != "bool" else []),
+                       *(["--profile", prof] if name == "2-bit-adder" else [])]
+                for name, (net, inputs, _, kind) in runs.items()
+            }
+            argvs["-I"] = ["-v", "benchmarks/netlists/chi_squared_arith.v", "-a", "u32", "-I", *files,
+                           "-o", os.path.join(td, "batch.csv")]
+            procs = {
+                name: subprocess.Popen(
+                    [sys.executable, "-m", "helm_tpu_torch.cli", *argv, "--device", self.device],
+                    cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                )
+                for name, argv in argvs.items()
+            }
+            res = {}
+            try:
+                for name, proc in procs.items():
+                    stdout, stderr = proc.communicate(timeout=600)
+                    res[name] = stdout
+                    if proc.returncode != 0:
+                        raise AssertionError(
+                            f"CLI failed on {name} ({proc.returncode}):\n{stdout[-3000:]}\n{stderr[-3000:]}"
+                        )
+            finally:
+                for proc in procs.values():
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            assert f"[✓] profiler trace written to {prof}" in res["2-bit-adder"], "CLI --profile printed no trace line"
+            with open(os.path.join(prof, "evaluation.pt.trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = [e for e in events if e.get("cat") == "kernel" and "rotate_tiles" in e.get("name", "")]
+            assert kernels, "the --profile trace names no rotate_tiles kernel"
+            notes.append(f"2-bit-adder --profile DIR: its trace holds {len(events)} events, {len(kernels)} "
+                         f"rotate_tiles kernels")
+            for name, (net, _, golden, kind) in runs.items():
+                got = csv_io.read_input_wires(os.path.join(td, f"{name}.csv"), kind)
+                exp = _golden(golden, kind)
+                assert got == exp, f"CLI outputs on {net} {got} != golden {exp}"
+                notes.append(f"{net}{'' if kind == 'bool' else ' -a ' + kind} --device cuda reproduces {golden}")
             for i in range(4):
-                assert f" [vector {i}: {files[i]}]" in res.stdout, f"CLI -I printed no vector {i}"
-                got = csv_io.read_input_wires(f"{out}.{i}", "u32")
+                assert f" [vector {i}: {files[i]}]" in res["-I"], f"CLI -I printed no vector {i}"
+                got = csv_io.read_input_wires(os.path.join(td, f"batch.csv.{i}"), "u32")
                 exp = _golden(f"chi_squared_arith_{i + 1}.outputs.csv", "u32")
                 assert got == exp, f"CLI -I vector {i} {got} != golden {exp}"
         notes.append("chi_squared_arith -a u32 --device cuda -I (the 4 recorded vectors, one batch) "
                      "reproduces the 4 golden CSVs")
         return "; ".join(notes)
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1112,8 +1315,9 @@ def main(argv=None) -> int:
     #: the kernels each main-path phase must launch
     expect = {"batch": ("blind_rotate_mb",), "c880": ("blind_rotate_mb",),
               "g1": ("blind_rotate_sb",), "lut": ("blind_rotate_mb", "blind_rotate_sb"),
-              "arith": ("blind_rotate_mb",), "ps": ("blind_rotate_ps", "blind_rotate_mb"),
-              "serve": ("blind_rotate_ts",),
+              "arith": ("blind_rotate_mb", "blind_rotate_sb"), "baseline": ("blind_rotate_mb",),
+              "ps": ("blind_rotate_ps", "blind_rotate_mb"),
+              "serve": ("blind_rotate_ts", "blind_rotate_mb"),
               "sweep": ("blind_rotate_mb", "blind_rotate_ps", "blind_rotate_ts", "blind_rotate_gm")}
     for name in PHASES:
         if name not in only:

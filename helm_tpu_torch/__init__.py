@@ -14,6 +14,12 @@ Top-level API (lazy imports — `import helm_tpu_torch` stays cheap):
     helm_tpu_torch.BooleanEngine                       gates and LUT modes on a torch device
     helm_tpu_torch.ArithEngine                         arith mode (radix integers) on a torch device
     helm_tpu_torch.params                              parameter sets (ALL_PARAMS)
+
+A worked walkthrough of these calls (client keygen, encryption, evaluation,
+decryption; gates, sequential, arith, batched and the radix ops on word
+tensors) is `helm_tpu_torch/examples/library_api.py`:
+
+    python -m helm_tpu_torch.examples.library_api [--device cpu]
 """
 
 __version__ = "0.3.0"

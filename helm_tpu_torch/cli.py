@@ -15,7 +15,10 @@ print under `[vector i: file]` and go to `<-o>.<i>`. `--fuse-levels` /
 graph replay an evaluation after a first, eager call that captures it) on
 or off; by default narrow, deep circuits fuse. `--fuse-cycles` runs all
 `-c` cycles as one call of `BooleanEngine.evaluate_cycles` and prints the
-amortized time a cycle.
+amortized time a cycle. Under `-I` a batch that underfills the card's
+cluster slots prints `batching.check_batch`'s warning. `--profile DIR`
+records the evaluation with `torch.profiler` (the card's kernels on CUDA,
+host activity only on the CPU) and writes a Chrome trace into DIR.
 
     python -m helm_tpu_torch.cli -v benchmarks/netlists/2-bit-adder.v \\
         -i benchmarks/test-cases/2-bit-adder.inputs.csv -o out.csv --device cuda
@@ -25,11 +28,15 @@ amortized time a cycle.
         -i benchmarks/test-cases/chi_squared_arith_1.inputs.csv --device cuda
     python -m helm_tpu_torch.cli -v benchmarks/netlists/chi_squared_arith.v -a u32 \\
         -I benchmarks/test-cases/chi_squared_arith_{1,2,3,4}.inputs.csv -o out.csv
+    python -m helm_tpu_torch.cli -v benchmarks/netlists/2-bit-adder.v \\
+        -i benchmarks/test-cases/2-bit-adder.inputs.csv --profile prof/
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import time
 
@@ -101,6 +108,10 @@ def build_argparser() -> argparse.ArgumentParser:
         "gates_tpu_v32 (single-bit), gates_128_k3 or arith_128_mb2 (multi-bit)",
     )
     ap.add_argument(
+        "--profile", metavar="DIR",
+        help="capture a torch.profiler trace of the evaluation into DIR (Chrome trace JSON)",
+    )
+    ap.add_argument(
         "--keys", metavar="DIR",
         help="load client/server keys for the parameter set from DIR when "
         "present, else generate and save them there",
@@ -163,6 +174,25 @@ def _sync(device) -> None:
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def _profiled(args, device):
+    """torch.profiler over the block when --profile DIR is given
+    (`helm_tpu/cli.py:261-292`, jax.profiler there): CUDA activity on the
+    card, CPU activity only on the CPU; the Chrome trace goes to
+    DIR/evaluation.pt.trace.json. A profiler that fails raises."""
+    if not args.profile:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        yield
+    os.makedirs(args.profile, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(args.profile, "evaluation.pt.trace.json"))
+    print(f"[✓] profiler trace written to {args.profile}")
 
 
 def main(argv=None) -> int:
@@ -233,6 +263,13 @@ def _run_boolean(args, netlist, device) -> int:
     )
     print(f"KeyGen done in {time.time() - start} seconds.")
     engine.compile(netlist)
+    if args.batch_input_files:
+        # the card's fill at this batch (helm_tpu/cli.py:245-252)
+        from .batching import check_batch
+
+        warn = check_batch(engine, len(args.batch_input_files))
+        if warn:
+            print(f"[!] {warn}")
 
     start = time.time()
     wires = engine.encrypt_inputs(input_wire_map)
@@ -241,27 +278,28 @@ def _run_boolean(args, netlist, device) -> int:
     print(f"Encryption done in {time.time() - start} seconds.")
 
     ready_flag = False
-    if args.fuse_cycles and args.cycles > 1 and not engine.has_ready():
-        # all cycles in one evaluate_cycles call (helm_tpu/cli.py:267-278):
-        # the amortized time a cycle, since a single replay has no
-        # per-cycle wall-clock
-        start = time.time()
-        wires = engine.evaluate_cycles(wires, args.cycles)
-        _sync(device)
-        dt = time.time() - start
-        print(
-            f"Cycles 0..{args.cycles - 1}) Evaluation done in {dt} seconds "
-            f"(one fused call; {dt / args.cycles:.3f} s/cycle amortized).\n"
-        )
-    else:
-        for cycle in range(args.cycles):
+    with _profiled(args, device):
+        if args.fuse_cycles and args.cycles > 1 and not engine.has_ready():
+            # all cycles in one evaluate_cycles call (helm_tpu/cli.py:267-278):
+            # the amortized time a cycle, since a single replay has no
+            # per-cycle wall-clock
             start = time.time()
-            wires = engine.evaluate(wires, verbose=args.verbose)
-            if args.cycles > 1 and engine.has_ready():
-                ready_flag = True
-                valid = engine.evaluate_ready(wires, valid)
+            wires = engine.evaluate_cycles(wires, args.cycles)
             _sync(device)
-            print(f"Cycle {cycle}) Evaluation done in {time.time() - start} seconds.\n")
+            dt = time.time() - start
+            print(
+                f"Cycles 0..{args.cycles - 1}) Evaluation done in {dt} seconds "
+                f"(one fused call; {dt / args.cycles:.3f} s/cycle amortized).\n"
+            )
+        else:
+            for cycle in range(args.cycles):
+                start = time.time()
+                wires = engine.evaluate(wires, verbose=args.verbose)
+                if args.cycles > 1 and engine.has_ready():
+                    ready_flag = True
+                    valid = engine.evaluate_ready(wires, valid)
+                _sync(device)
+                print(f"Cycle {cycle}) Evaluation done in {time.time() - start} seconds.\n")
 
     start = time.time()
     print("Encrypted Evaluation:")

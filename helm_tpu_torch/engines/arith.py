@@ -21,8 +21,8 @@ the literal's position (circuit.rs:1337-1361); we evaluate positionally
 (`5 - x` means 5-x) by trivially encrypting the literal, which matches the
 plaintext oracle.
 
-Left out for now: `set_sharding` and the device mesh (ROADMAP.md queue 1
-item 9).
+Left out for now: `set_sharding` and the device mesh (ROADMAP.md item
+"Multi-device").
 """
 
 from __future__ import annotations

@@ -23,9 +23,12 @@ follow the device and HELM_TPU_MB_KERNEL), plus `--device` (default
 `--no-fuse-levels` force fused level evaluation on or off (default: the
 engine's auto-rule): on the card the first batch runs eagerly and captures
 one CUDA graph for the batch shape, and every later batch is one replay of
-it (the batch line says "graph replay"). Not ported, and refused with a
-pointer to ROADMAP.md: `--batch auto` (the TPU-calibrated cost model of
-`helm_tpu/batching.py`).
+it (the batch line says "graph replay"). `--batch auto` picks the batch
+in 1..`--max-batch` by the card's cost model (`batching.suggest_batch`:
+the launches each level really makes at each batch) and prints it with its
+fill; a fixed `--batch` that underfills the card's cluster slots prints
+`batching.check_batch`'s warning. An arith engine takes min(8,
+`--max-batch`) under `auto`, as the reference does.
 """
 
 from __future__ import annotations
@@ -54,8 +57,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument(
         "--batch", default="8",
-        help="vectors per evaluation (a fixed shape; 'auto' is not ported, "
-        "ROADMAP.md item '--batch auto: an H100 serving cost model')",
+        help="vectors per evaluation (a fixed shape), or 'auto': the batch in "
+        "1..--max-batch of least predicted cost a vector (helm_tpu_torch/batching.py)",
     )
     ap.add_argument("--max-batch", type=int, default=16, help="upper bound for --batch auto")
     ap.add_argument(
@@ -130,6 +133,33 @@ def _make_engine(args, netlist, device):
         params=params, seed=args.seed, keys=keys, device=device,
         fuse_levels=args.fuse_levels,
     )
+
+
+def _choose_batch(engine, args) -> int:
+    """The batch: --batch, or under 'auto' the cost model's choice
+    (`helm_tpu/serve.py:273-283`); prints the choice with its fill, or a
+    fixed batch's underfill warning."""
+    from .batching import check_batch, suggest_batch
+
+    boolean = hasattr(engine, "plan")  # the arith engine has no level plan
+    if str(args.batch) == "auto":
+        if not boolean:  # radix rounds vary in width from gate to gate
+            batch = min(8, args.max_batch)
+            print(f"[serve] --batch auto -> {batch} (arith mode)", flush=True)
+            return batch
+        batch, table = suggest_batch(engine, args.max_batch)
+        fill = next(t["fill"] for t in table if t["batch"] == batch)
+        print(
+            f"[serve] --batch auto -> {batch} ({fill:.0%} fill; candidates "
+            f"{[(t['batch'], t['fill'], t['cost_per_vector']) for t in table]})",
+            flush=True,
+        )
+        return batch
+    batch = int(args.batch)
+    warn = check_batch(engine, batch, args.max_batch) if boolean else None
+    if warn:
+        print(f"[serve] WARNING: {warn}", flush=True)
+    return batch
 
 
 #: a file is read only after its (size, mtime) has been unchanged this
@@ -224,12 +254,6 @@ def main(argv=None) -> int:
     if "--supervise" in argv:
         return _supervise(list(argv))
     args = build_argparser().parse_args(argv)
-    if str(args.batch) == "auto":
-        raise SystemExit(
-            "--batch auto is not ported: helm_tpu/batching.py is the TPU-calibrated "
-            "cost model (ROADMAP.md item '--batch auto: an H100 serving cost model', "
-            "'What the port leaves out'); pass a fixed --batch"
-        )
     import torch
 
     device = torch.device(args.device)
@@ -247,7 +271,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     engine = _make_engine(args, netlist, device)
     engine.compile(netlist)
-    batch = int(args.batch)
+    batch = _choose_batch(engine, args)
     fused = getattr(engine, "fused", False)  # the arith engine has no level fusion
     print(
         f"[serve] engine ready in {time.time() - t0:.1f}s "

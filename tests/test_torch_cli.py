@@ -5,6 +5,7 @@ so only a fresh interpreter can show that the port's main path (keygen,
 engine, bootstrap, CLI) never imports it.
 """
 
+import json
 import subprocess
 import sys
 import textwrap
@@ -70,6 +71,30 @@ def test_cli_accepts_the_reference_device_flags(flag):
     the device at its default, the card."""
     args = cli.build_argparser().parse_args(["-v", "x.v", flag])
     assert args.tpu and args.device == "cuda"
+
+
+@pytest.mark.parametrize("extra", [[], ["-c", "2", "--fuse-cycles"]], ids=["one_cycle", "fuse_cycles"])
+def test_cli_profile_writes_a_chrome_trace(tmp_path, capsys, extra):
+    """--profile DIR on the CPU: the evaluation runs under torch.profiler
+    (host activity only), the reference's line is printed, and DIR holds a
+    Chrome trace that parses as JSON and records the level loop's ops.
+    The s27 case covers the --fuse-cycles branch."""
+    prof = tmp_path / "prof"
+    out = tmp_path / "out.csv"
+    if extra:
+        argv = ["-v", "benchmarks/netlists/s27.v", "-i", "benchmarks/test-cases/s27.inputs.csv", *extra]
+    else:
+        argv = list(ADDER)
+    assert cli.main(argv + ["-o", str(out), "--test-params", "--device", "cpu", "--seed", "5",
+                            "--profile", str(prof)]) == 0
+    assert f"[✓] profiler trace written to {prof}" in capsys.readouterr().out
+    traces = list(prof.glob("*.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    assert not any(e.get("cat") == "kernel" for e in events)  # no CUDA activity on the CPU
+    if not extra:
+        assert _read(out) == _read(GOLDEN)
 
 
 def test_cli_missing_cuda_raises(monkeypatch):

@@ -156,6 +156,38 @@ def test_serve_and_sweep_in_a_fresh_interpreter_import_neither(tmp_path):
     assert (watch / "done" / "v.csv").exists()
 
 
+@pytest.mark.parametrize("module,argv,last", [
+    ("helm_tpu_torch.examples.library_api", ["--device", "cpu"], "all examples OK"),
+    ("helm_tpu_torch.tools.verify_baseline", ["--fast", "--only", "2-bit"], "ALL BIT-EXACT"),
+], ids=["library_api", "verify_baseline"])
+def test_module_entry_points_in_a_fresh_interpreter_import_neither(module, argv, last):
+    """`python -m <module> <argv>` (run as runpy runs -m) in a fresh
+    interpreter: exit code 0, its last line, and neither JAX nor helm_tpu
+    in sys.modules."""
+    code = textwrap.dedent(
+        f"""
+        import runpy, sys
+        sys.argv = [{module!r}, *{argv!r}]
+        try:
+            runpy.run_module({module!r}, run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            assert e.code in (0, None), e.code
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+        assert not leaked, leaked
+        print("ISOLATED_OK")
+        """
+    )
+    # one intra-op thread (the example ~30 s alone): no slower when other
+    # test processes hold the cores, where 8 threads each stall for minutes
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    lines = res.stdout.strip().splitlines()
+    assert lines[-1] == "ISOLATED_OK" and lines[-2] == last, lines[-3:]
+
+
 @pytest.mark.parametrize("N", [64, 128, 512, 1024, 2048])
 def test_ntt_tables_equal_the_reference(N):
     mine, ref = modring.get_tables(N), ref_modring.get_tables(N)

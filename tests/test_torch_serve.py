@@ -166,29 +166,30 @@ def test_serve_supervisor_restarts_after_crash(tmp_path):
     assert not list(watch.glob("*.csv"))
 
 
-# The ids are kept from before --fuse-levels was ported, when the second
-# case checked that it exited with a ROADMAP pointer. Now extra1 is a
-# positive --fuse-levels run (fused level evaluation: on the CPU the level
-# loop, on the card one CUDA graph replay a batch).
-@pytest.mark.parametrize("extra,what", [
-    (["--batch", "auto"], "--batch auto is not ported.*ROADMAP.md"),
-    (["--fuse-levels"], None),
+# The ids are kept from before --batch auto and --fuse-levels were ported,
+# when both cases checked that they exited with a ROADMAP pointer. Now
+# both are positive runs: extra0 --batch auto --max-batch 4 (on the CPU
+# every batch costs the same a vector, so the model picks the largest, 4),
+# extra1 --fuse-levels (fused level evaluation: on the CPU the level loop,
+# on the card one CUDA graph replay a batch).
+@pytest.mark.parametrize("extra,printed", [
+    (["--batch", "auto", "--max-batch", "4"], "--batch auto -> 4 (100% fill;"),
+    (["--batch", "2", "--fuse-levels"], "levels fused: True"),
 ], ids=["extra0---batch auto is not ported.*ROADMAP.md", "extra1---fuse-levels is not ported.*ROADMAP.md"])
-def test_serve_unported_options_point_to_roadmap(tmp_path, capsys, extra, what):
-    """--batch auto is refused before any work; --fuse-levels runs the
-    2-bit adder to the plaintext oracle with a fused engine."""
+def test_serve_unported_options_point_to_roadmap(tmp_path, capsys, extra, printed):
+    """--batch auto --max-batch 4 serves the 2-bit adder in one batch of
+    4 (two vectors, padded); --fuse-levels serves it with a fused engine.
+    Both reach the plaintext oracle."""
     watch, outd = tmp_path / "in", tmp_path / "out"
-    if what is not None:
-        with pytest.raises(SystemExit, match=what):
-            _serve(watch, outd, "--test-params", *extra)
-        assert not watch.exists()  # refused before any work
-        return
     watch.mkdir()
     vecs = [dict(zip(WIRES, bits)) for bits in ((1, 0, 1, 1, 0), (0, 1, 1, 0, 1))]
     for i, vec in enumerate(vecs):
         _write(watch / f"v{i}.csv", vec)
-    assert _serve(watch, outd, "--test-params", "--batch", "2", "--max-batches", "1", *extra) == 0
-    assert "levels fused: True" in capsys.readouterr().out
+    assert _serve(watch, outd, "--test-params", "--max-batches", "1", "--linger", "0.1", *extra) == 0
+    out = capsys.readouterr().out
+    assert printed in out
+    if "auto" in extra:
+        assert "(batch=4," in out
     for i, vec in enumerate(vecs):
         assert _read(outd / f"v{i}.out.csv") == _oracle(vec)
         assert (watch / "done" / f"v{i}.csv").exists()
