@@ -112,6 +112,25 @@ Phases, in order (each prints one line, with its seconds):
   sweep   helm_tpu_torch.tools.mb_sweep at GATES_128_K3, G = 8, 64 and 1024,
           for LAYOUT fs (K1), ps (K6), ts (K4) and gm (K3, whose only path
           this is): one table of rot/s
+  mesh    main path of gate sharding (helm_tpu_torch/parallel/mesh.py):
+          four shards of cuda:0 (a GateMesh built by hand, each shard on
+          its own stream) against the unsharded engines, tolerance 0 on
+          every real wire: c880-like at GATES_128_K3 eager and fused (the
+          shards' kernels inside one graph replay; golden CSV), the G=1024
+          AND batch under fs (K1), ps (K6), ts (K4) and at GATES_TPU (K2),
+          the LUT adder at LUT_128_K2 fused and chi-squared u32 at
+          ARITH_128_MB2 (one vector): s/vector or ms sharded and
+          unsharded, each shard's launches; dryrun_multichip(4) on the four
+          shards; a process group of one on NCCL in process (a fused
+          c880-like whose graph holds its 24 all-gathers, replayed) and,
+          in subprocesses started first, the CLI under --multihost: c880-like
+          at world size 1 on NCCL (--fuse-levels: the capture must hold
+          the all-gathers; golden CSV) and the 2-bit adder in two processes
+          on the one card (gloo: NCCL refuses two ranks on one device),
+          rank 0's -o the golden CSV and both printing the same outputs.
+          With two or more cards, make_gate_mesh(count) and the CLI on
+          NCCL across them too; else it prints that the exchange across
+          cards is not measured
   cli     python -m helm_tpu_torch.cli --device cuda (default sets), four
           subprocesses started together: the 2-bit adder (with --profile
           DIR: its Chrome trace must name rotate_tiles), the LUT adder and
@@ -134,8 +153,8 @@ Phases, in order (each prints one line, with its seconds):
           replay
 
 The kernels' launch counters are set to 0 just before each main-path phase
-(batch, c880, g1, lut, arith, baseline, ps, serve, sweep) and read just
-after it;
+(batch, c880, g1, lut, arith, baseline, ps, serve, sweep, mesh) and read
+just after it;
 the kernel JSON line reports the sums. A graph replay launches its
 kernels without calling their wrappers: the engine adds, at each replay,
 the launches the wrapper counted while the graph was captured (and takes
@@ -166,9 +185,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = (
     "device", "build", "k1", "k6", "k4", "k3", "k2", "batch", "c880", "g1", "lut", "arith",
-    "baseline", "ps", "serve", "sweep", "cli", "bench", "profile",
+    "baseline", "ps", "serve", "sweep", "mesh", "cli", "bench", "profile",
 )
-MAIN_PATH = ("batch", "c880", "g1", "lut", "arith", "baseline", "ps", "serve", "sweep")
+MAIN_PATH = ("batch", "c880", "g1", "lut", "arith", "baseline", "ps", "serve", "sweep", "mesh")
 KERNELS = ("blind_rotate_mb", "blind_rotate_sb", "blind_rotate_ps", "blind_rotate_ts", "blind_rotate_gm")
 
 #: H100 SXM peaks used for bound_ms: 132 SMs x 64 INT32 lanes x 1.98 GHz
@@ -293,6 +312,15 @@ def _oracle_arith(nl, inputs, width):
     c = Circuit.from_netlist(nl)
     vals = c.evaluate_arith(c.initialize_wire_map(nl.wire_set, inputs, default=0), width)
     return {w: vals[w] for w in nl.outputs}
+
+
+def _free_port() -> int:
+    """A free TCP port on localhost, for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def _same(out, exp):
@@ -1218,6 +1246,251 @@ class Smoke:
         return (f"c880-like {circuit['value']} s/vector (levels fused: {circuit['levels_fused']}), "
                 f"{rate['value']} bootstraps/s, on {rate['capture']}")
 
+    def _mesh_cli(self, argv, nprocs, tag, outdir):
+        """`nprocs` CLI processes under --multihost (--mesh nprocs), started
+        now, each writing -o to outdir/<tag>.<pid>.csv; returns (tag, pid,
+        Popen) per process."""
+        coordinator = f"127.0.0.1:{_free_port()}"
+        return [
+            (tag, pid, subprocess.Popen(
+                [sys.executable, "-m", "helm_tpu_torch.cli", *argv, "--device", self.device,
+                 "--multihost", f"{coordinator},{nprocs},{pid}", "--mesh", str(nprocs),
+                 "-o", os.path.join(outdir, f"{tag}.{pid}.csv")],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+            for pid in range(nprocs)
+        ]
+
+    def phase_mesh(self):
+        """Gate sharding (helm_tpu_torch/parallel/mesh.py) on the card:
+        four shards of cuda:0 against the unsharded engines (tolerance 0,
+        real wires); the dryrun; a process group at world size 1 on NCCL
+        (the CLI, and a fused engine whose replayed graph holds its
+        all-gathers) and two processes on gloo over the one card; across
+        cards when the machine has several."""
+        import io
+        import re
+        import shutil
+
+        import numpy as np
+        import torch
+
+        from helm_tpu_torch import ArithEngine, BooleanEngine
+        from helm_tpu_torch import params as P
+        from helm_tpu_torch.fhe.ntt import words
+        from helm_tpu_torch.fhe import pbs
+        from helm_tpu_torch.io import csv_io
+        from helm_tpu_torch.ops import mb_pbs
+        from helm_tpu_torch.parallel import distributed, dryrun
+        from helm_tpu_torch.parallel import mesh as M
+
+        dev0 = torch.device(self.device, 0)
+        notes = []
+        td = tempfile.mkdtemp(prefix="mesh-")
+        # the subprocesses first, so that their keygen overlaps the rest
+        c880_argv = ["-v", "benchmarks/netlists/c880-like.v", "-i", "benchmarks/test-cases/c880-like.inputs.csv",
+                     "--fuse-levels", "-p"]
+        adder_argv = ["-v", "benchmarks/netlists/2-bit-adder.v", "-i", "benchmarks/test-cases/2-bit-adder.inputs.csv"]
+        procs = self._mesh_cli(c880_argv, 1, "nccl1-c880", td)
+        procs += self._mesh_cli(adder_argv, 2, "gloo2-adder", td)
+        try:
+            def shard(eng, mesh):
+                eng.set_sharding(M.batch_sharding(mesh), M.replicated(mesh))
+                return mesh
+
+            def four():
+                return M.GateMesh([dev0] * 4)
+
+            def timed(eng, wires, reps):
+                times = []
+                for _ in range(reps):
+                    _sync()
+                    t0 = time.perf_counter()
+                    out = eng.evaluate(wires)
+                    _sync()
+                    times.append(time.perf_counter() - t0)
+                return out, float(np.median(times))
+
+            def same(got, ref, n_wires, what):
+                real = n_wires - 1  # the trash wire is the last
+                if not torch.equal(got[..., :real, :], ref[..., :real, :]):
+                    bad = (got[..., :real, :] != ref[..., :real, :]).nonzero()[0].tolist()
+                    raise AssertionError(f"{what}: sharded != unsharded at {bad}")
+
+            # c880-like at GATES_128_K3 (K1): four shards, eager and fused
+            p = P.GATES_128_K3
+            ck, sk, _ = self.keys_for(p, 2024)
+            nl = _netlist("c880-like.v")
+            inputs = _golden("c880-like.inputs.csv")
+            engines = {}
+            for name, fuse, mesh in (("unsharded eager", False, None), ("unsharded fused", True, None),
+                                     ("4 shards eager", False, four()), ("4 shards fused", True, four())):
+                eng = BooleanEngine(mode="gates", params=p, keys=(ck, sk), device=self.device, fuse_levels=fuse)
+                if mesh is not None:
+                    shard(eng, mesh)
+                eng.compile(nl)
+                engines[name] = eng
+            c880_wires = engines["unsharded eager"].encrypt_inputs(inputs)
+            words_of, secs = {}, {}
+            for name, eng in engines.items():
+                if eng.fused:
+                    eng.evaluate(c880_wires)  # the eager run and the capture
+                words_of[name], secs[name] = timed(eng, c880_wires, 3)
+            ref = words_of["unsharded eager"]
+            for name, got in words_of.items():
+                same(got, ref, engines[name].plan.num_wires, f"c880-like {name}")
+            out = engines["4 shards fused"].decrypt_outputs(words_of["4 shards fused"])
+            assert out == _golden("c880-like.outputs.csv"), "sharded c880-like differs from the golden CSV"
+            assert engines["4 shards fused"].replays == 3
+            per_shard = engines["4 shards fused"].mesh.launches
+            assert all(c > 0 for c in per_shard), f"a shard never launched K1: {per_shard}"
+            notes.append(
+                "c880-like GATES_128_K3 on 4 shards of cuda:0 == unsharded (tolerance 0), golden CSV ok: "
+                + ", ".join(f"{k} {v:.6f} s/vector" for k, v in secs.items())
+                + f" (medians of 3); K1 launches per shard (fused: capture run + 3 replays) {per_shard}"
+            )
+
+            # the G=1024 AND batch under fs (K1), ps (K6) and ts (K4), and at
+            # GATES_TPU (K2): one sharded batch against one launch
+            for params, seed, kernels in ((p, 2024, ("fs", "ps", "ts")), (P.GATES_TPU, 2026, ("fs",))):
+                ck2, _, dsk = self.keys_for(params, seed)
+                lin, _ = _ands(ck2, 1024, 0)
+                x = words(lin, self.device)
+                tv = words(pbs.gates_test_poly(params), self.device)
+                for kn in kernels:
+                    with _mb_kernel(kn):
+                        mesh = four()
+                        one_ms, one = _time_ms(lambda: mb_pbs.bootstrap(dsk, x, tv))
+                        m_ms, got = _time_ms(lambda: M.bootstrap_sharded(mesh, dsk, x, tv))
+                    assert torch.equal(got, one), f"{params.name} {kn}: 4 shards != one launch"
+                    route = mb_pbs.blind_rotation(params).__name__ if kn == "fs" else kn
+                    notes.append(f"{params.name} G=1024 AND batch, {route}: 4 shards == one launch (tolerance 0), "
+                                 f"{m_ms:.3f} ms sharded, {one_ms:.3f} ms one launch; launches per shard "
+                                 f"{mesh.launches}")
+
+            # the LUT adder at LUT_128_K2 (K1), fused, per-slot test polynomials
+            p = P.LUT_128_K2
+            ck, sk, _ = self.keys_for(p, 2025)
+            nl = _netlist("8-bit-adder-lut-3-1.v")
+            base = BooleanEngine(mode="lut", params=p, keys=(ck, sk), device=self.device)
+            sharded = BooleanEngine(mode="lut", params=p, keys=(ck, sk), device=self.device)
+            mesh = shard(sharded, four())
+            base.compile(nl)
+            sharded.compile(nl)
+            wires = base.encrypt_inputs(_golden("8-bit-adder.inputs.csv"))
+            base.evaluate(wires)
+            sharded.evaluate(wires)
+            ref, t_one = timed(base, wires, 3)
+            got, t_four = timed(sharded, wires, 3)
+            same(got, ref, sharded.plan.num_wires, "LUT adder")
+            assert _same(sharded.decrypt_outputs(got), _golden("8-bit-adder-lut-3-1.outputs.csv"))
+            notes.append(f"LUT adder LUT_128_K2 fused on 4 shards == unsharded, golden CSV ok: {t_four:.6f} s/vector "
+                         f"sharded, {t_one:.6f} unsharded; launches per shard {mesh.launches}")
+
+            # chi-squared u32 at ARITH_128_MB2 (K1), one vector
+            p = P.ARITH_128_MB2
+            ck, sk, _ = self.keys_for(p, 2030)
+            nl = _netlist("chi_squared_arith.v", arith=True)
+            inputs = _golden("chi_squared_arith_1.inputs.csv", "u32")
+            eng = ArithEngine("u32", params=p, keys=(ck, sk), device=self.device)
+            eng.compile(nl)
+            wires = eng.encrypt_inputs(inputs)
+            _sync()
+            t0 = time.perf_counter()
+            ref = eng.evaluate(wires)
+            _sync()
+            t_one = time.perf_counter() - t0
+            mesh = shard(eng, four())
+            _sync()
+            t0 = time.perf_counter()
+            got = eng.evaluate(wires)
+            _sync()
+            t_four = time.perf_counter() - t0
+            assert torch.equal(got, ref), "chi-squared u32: 4 shards != unsharded"
+            assert eng.decrypt_outputs(got) == _golden("chi_squared_arith_1.outputs.csv", "u32")
+            notes.append(f"chi-squared u32 ARITH_128_MB2 on 4 shards == unsharded, golden CSV ok: {t_four:.6f} s/vector "
+                         f"sharded, {t_one:.6f} unsharded; launches per shard {mesh.launches}")
+
+            # the dryrun's four checks on four shards of the card
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                dryrun.dryrun_multichip(4, self.device, devices=[dev0] * 4)
+            lines = buf.getvalue().strip().splitlines()
+            print("\n".join(lines), flush=True)
+            assert len(lines) == 4, lines
+            notes.append("dryrun_multichip(4) on 4 shards of cuda:0: 4 checks OK")
+
+            # a process group of one on NCCL: a fused engine whose captured
+            # graph holds the all-gathers, replayed
+            dist = torch.distributed
+            distributed.init_multihost(f"127.0.0.1:{_free_port()}", 1, 0, self.device)
+            try:
+                assert dist.get_backend() == "nccl", dist.get_backend()
+                p = P.GATES_128_K3
+                ck, sk, _ = self.keys_for(p, 2024)
+                nl = _netlist("c880-like.v")
+                eng = BooleanEngine(mode="gates", params=p, keys=(ck, sk), device=self.device, fuse_levels=True)
+                mesh = M.shard_engine(eng, 1)
+                eng.compile(nl)
+                eng.evaluate(c880_wires)  # the eager run (its all-gathers counted) and the capture
+                pbs_levels = sum(1 for lp in eng.plan.levels if lp.num_slots)
+                assert mesh.gathers == pbs_levels, (mesh.gathers, pbs_levels)
+                got, t_nccl = timed(eng, c880_wires, 3)
+                # each replay adds the all-gathers its capture recorded
+                assert eng.replays == 3 and mesh.gathers == 4 * pbs_levels, (eng.replays, mesh.gathers)
+                same(got, words_of["unsharded eager"], eng.plan.num_wires, "c880-like under NCCL world 1")
+                notes.append(f"NCCL world 1: c880-like fused, its graph holds {pbs_levels} all-gathers, 3 replays == "
+                             f"unsharded (tolerance 0), {t_nccl:.6f} s/vector")
+            finally:
+                dist.destroy_process_group()
+
+            count = torch.cuda.device_count()
+            if count >= 2:
+                mesh_n = M.make_gate_mesh(count, self.device)
+                p = P.GATES_128_K3
+                ck, sk, _ = self.keys_for(p, 2024)
+                eng = BooleanEngine(mode="gates", params=p, keys=(ck, sk), device=self.device, fuse_levels=False)
+                shard(eng, mesh_n)
+                eng.compile(_netlist("c880-like.v"))
+                got, t_n = timed(eng, c880_wires, 3)
+                same(got, words_of["unsharded eager"], eng.plan.num_wires, f"c880-like on {count} cards")
+                notes.append(f"c880-like eager on {mesh_n} == unsharded: {t_n:.6f} s/vector; launches per shard "
+                             f"{mesh_n.launches}")
+                procs += self._mesh_cli(adder_argv, count, f"nccl{count}-adder", td)
+            else:
+                notes.append("1 card: the exchange across cards (make_gate_mesh(n > 1), NCCL between cards) "
+                             "is not measured")
+
+            # the CLI processes
+            res = {}
+            for tag, pid, proc in procs:
+                stdout = proc.communicate(timeout=600)[0]
+                if proc.returncode != 0:
+                    raise AssertionError(f"CLI {tag} process {pid} failed ({proc.returncode}):\n{stdout[-3000:]}")
+                res[(tag, pid)] = stdout
+            for tag in sorted({t for t, _, _ in procs}):
+                pids = sorted(pid for t, pid in res if t == tag)
+                golden = "c880-like.outputs.csv" if "c880" in tag else "2-bit-adder.outputs.csv"
+                got = csv_io.read_input_wires(os.path.join(td, f"{tag}.0.csv"), "bool")
+                assert got == _golden(golden), f"CLI {tag}: {got} != {golden}"
+                assert not any(os.path.exists(os.path.join(td, f"{tag}.{pid}.csv")) for pid in pids[1:]), (
+                    f"CLI {tag}: a rank other than 0 wrote -o")
+                printed = {res[(tag, pid)].split("Encrypted Evaluation:", 1)[1].split("Decrypt", 1)[0] for pid in pids}
+                assert len(printed) == 1, f"CLI {tag}: the processes printed different outputs"
+                if tag.startswith("nccl1"):
+                    assert "(with its" in res[(tag, 0)] and "all-gathers)" in res[(tag, 0)], (
+                        "the NCCL world-1 CLI did not capture its all-gathers")
+                backend = re.search(r"Process 0 of \d+ \((\w+),", res[(tag, 0)]).group(1)
+                notes.append(f"CLI {tag}: {len(pids)} process(es) on {backend}, rank 0 wrote {golden}, "
+                             "every process printed the same outputs")
+        finally:
+            for _, _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            shutil.rmtree(td, ignore_errors=True)
+        return "; ".join(notes)
+
     def phase_cli(self):
         """The CLI in four subprocesses, started together (each pays its own
         keygen on the host): the 2-bit adder with --profile DIR, the LUT
@@ -1318,7 +1591,8 @@ def main(argv=None) -> int:
               "arith": ("blind_rotate_mb", "blind_rotate_sb"), "baseline": ("blind_rotate_mb",),
               "ps": ("blind_rotate_ps", "blind_rotate_mb"),
               "serve": ("blind_rotate_ts", "blind_rotate_mb"),
-              "sweep": ("blind_rotate_mb", "blind_rotate_ps", "blind_rotate_ts", "blind_rotate_gm")}
+              "sweep": ("blind_rotate_mb", "blind_rotate_ps", "blind_rotate_ts", "blind_rotate_gm"),
+              "mesh": ("blind_rotate_mb", "blind_rotate_sb")}
     for name in PHASES:
         if name not in only:
             continue

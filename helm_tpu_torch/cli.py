@@ -19,6 +19,13 @@ amortized time a cycle. Under `-I` a batch that underfills the card's
 cluster slots prints `batching.check_batch`'s warning. `--profile DIR`
 records the evaluation with `torch.profiler` (the card's kernels on CUDA,
 host activity only on the CPU) and writes a Chrome trace into DIR.
+`--mesh N` shards every PBS batch across N devices (`parallel/mesh.py`:
+N cards, or N virtual shards with --device cpu); `--multihost
+COORD:PORT,NPROCS,PID` first joins a `torch.distributed` process group of
+NPROCS processes, one per card (`parallel/distributed.py`), and `--mesh`
+must then be NPROCS. Every process makes the same keys (without --seed,
+process 0 draws one and sends it to the others) and encrypts the same
+inputs; every process prints its outputs; only rank 0 writes `-o`.
 
     python -m helm_tpu_torch.cli -v benchmarks/netlists/2-bit-adder.v \\
         -i benchmarks/test-cases/2-bit-adder.inputs.csv -o out.csv --device cuda
@@ -30,6 +37,12 @@ host activity only on the CPU) and writes a Chrome trace into DIR.
         -I benchmarks/test-cases/chi_squared_arith_{1,2,3,4}.inputs.csv -o out.csv
     python -m helm_tpu_torch.cli -v benchmarks/netlists/2-bit-adder.v \\
         -i benchmarks/test-cases/2-bit-adder.inputs.csv --profile prof/
+    python -m helm_tpu_torch.cli -v benchmarks/netlists/c880-like.v \\
+        -i benchmarks/test-cases/c880-like.inputs.csv --mesh 2 --device cpu --test-params
+    # one process each, PID 0 and 1:
+    python -m helm_tpu_torch.cli -v benchmarks/netlists/2-bit-adder.v \\
+        -i benchmarks/test-cases/2-bit-adder.inputs.csv --test-params --device cpu \\
+        --multihost 127.0.0.1:29500,2,PID --mesh 2
 """
 
 from __future__ import annotations
@@ -134,6 +147,16 @@ def build_argparser() -> argparse.ArgumentParser:
         "--device", default="cuda",
         help="torch device (default cuda; cpu runs the plain torch versions)",
     )
+    ap.add_argument(
+        "--mesh", type=int, default=0, metavar="N",
+        help="shard gate batches across N devices (0 = single device; with "
+        "--device cpu, N virtual shards)",
+    )
+    ap.add_argument(
+        "--multihost", metavar="COORD:PORT,NPROCS,PID",
+        help="join a torch.distributed process group of NPROCS processes, one per "
+        "card (combine with --mesh NPROCS); process PID 0 serves COORD:PORT",
+    )
     return ap
 
 
@@ -141,24 +164,36 @@ def _input_maps(args, ptxt_type: str):
     """The input map, or with -I the list of one map per CSV
     (`helm_tpu/cli.py:204-214`)."""
     if args.batch_input_files:
-        maps = [csv_io.read_input_wires(f, ptxt_type) for f in args.batch_input_files]
+        # parsed in C++ (io/native_loader.py), as the reference's -I
+        from .io import native_loader
+
+        maps = [native_loader.read_input_wires(f, ptxt_type) for f in args.batch_input_files]
         print(f"[✓] Batched input wires: {len(maps)} vectors.")
         return maps
     return get_input_wire_map(args, ptxt_type)
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
 def _report(args, outputs) -> None:
     """Print and write the outputs: one dict, or with -I one per vector
-    under `[vector i: file]`, written to `<-o>.<i>`."""
+    under `[vector i: file]`, written to `<-o>.<i>`. Under --multihost every
+    process prints and rank 0 alone writes."""
+    write = _rank() == 0
     if isinstance(outputs, list):
         for bi, out in enumerate(outputs):
             print(f" [vector {bi}: {args.batch_input_files[bi]}]")
             _print_outputs(out, args.verbose)
-            if args.output_wires_file:
+            if args.output_wires_file and write:
                 csv_io.write_output_wires(f"{args.output_wires_file}.{bi}", out)
     else:
         _print_outputs(outputs, args.verbose)
-        csv_io.write_output_wires(args.output_wires_file, outputs)
+        if write:
+            csv_io.write_output_wires(args.output_wires_file, outputs)
 
 
 def _print_outputs(outputs: dict, verbose: bool) -> None:
@@ -207,17 +242,40 @@ def main(argv=None) -> int:
             f"--device {args.device}: no CUDA device is available "
             "(pass --device cpu to run the plain torch versions)"
         )
-    if args.arithmetic and args.cycles > 1:
-        raise SystemExit(
-            "Arithmetic does not currently support sequential. Set num_cycles to 1."
+    if args.multihost:
+        # before keygen, as the reference initialises jax.distributed first
+        from .parallel.distributed import init_multihost, parse_multihost_flag
+
+        try:
+            coordinator, nprocs, pid = parse_multihost_flag(args.multihost)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        device = init_multihost(coordinator, nprocs, pid, device)
+        print(
+            f"[✓] Process {pid} of {nprocs} ({torch.distributed.get_backend()}, "
+            f"coordinator {coordinator}) on {device}."
         )
-    netlist = read_verilog_file(args.verilog, args.arithmetic is not None)
-    is_sequential = len(netlist.dff_outputs) > 1  # quirk kept: helm.rs:49
-    if args.cycles > 1 and not is_sequential:
-        raise SystemExit("[!] Cannot run combinational circuit for more than one cycles.")
-    if args.arithmetic:
-        return _run_arith(args, netlist, device)
-    return _run_boolean(args, netlist, device)
+        if args.seed is None:
+            # every process must make the same keys and ciphertexts: process
+            # 0 draws a 256-bit seed and sends it to the others
+            box = [int.from_bytes(os.urandom(32), "little") if pid == 0 else None]
+            torch.distributed.broadcast_object_list(box, src=0)
+            args.seed = box[0]
+    try:
+        if args.arithmetic and args.cycles > 1:
+            raise SystemExit(
+                "Arithmetic does not currently support sequential. Set num_cycles to 1."
+            )
+        netlist = read_verilog_file(args.verilog, args.arithmetic is not None)
+        is_sequential = len(netlist.dff_outputs) > 1  # quirk kept: helm.rs:49
+        if args.cycles > 1 and not is_sequential:
+            raise SystemExit("[!] Cannot run combinational circuit for more than one cycles.")
+        if args.arithmetic:
+            return _run_arith(args, netlist, device)
+        return _run_boolean(args, netlist, device)
+    finally:
+        if args.multihost:
+            torch.distributed.destroy_process_group()
 
 
 def _params_and_keys(args, test_params, default, device):
@@ -262,6 +320,12 @@ def _run_boolean(args, netlist, device) -> int:
         fuse_levels=args.fuse_levels,
     )
     print(f"KeyGen done in {time.time() - start} seconds.")
+    mesh = None
+    if args.mesh:
+        from .parallel.mesh import shard_engine
+
+        mesh = shard_engine(engine, args.mesh)
+        print(f"[✓] Gate batches sharded on {mesh}.")
     engine.compile(netlist)
     if args.batch_input_files:
         # the card's fill at this batch (helm_tpu/cli.py:245-252)
@@ -301,6 +365,8 @@ def _run_boolean(args, netlist, device) -> int:
                 _sync(device)
                 print(f"Cycle {cycle}) Evaluation done in {time.time() - start} seconds.\n")
 
+    if mesh is not None:
+        print(f"[✓] Mesh: kernel launches per shard {mesh.launches}, {mesh.gathers} all-gathers.")
     start = time.time()
     print("Encrypted Evaluation:")
     if ready_flag:
@@ -324,6 +390,12 @@ def _run_arith(args, netlist, device) -> int:
         args.arithmetic, params=params, seed=args.seed, keys=keys, device=device
     )
     print(f"KeyGen done in {time.time() - start} seconds.")
+    if args.mesh:
+        from .parallel.mesh import batch_sharding, make_gate_mesh, replicated
+
+        mesh = make_gate_mesh(args.mesh, device.type)
+        engine.set_sharding(batch_sharding(mesh), replicated(mesh))
+        print(f"[✓] Radix bootstrap batches sharded on {mesh}.")
     engine.compile(netlist)
 
     start = time.time()
@@ -334,6 +406,8 @@ def _run_arith(args, netlist, device) -> int:
     wires = engine.evaluate(wires, verbose=args.verbose)
     _sync(device)
     print(f"Evaluation done in {time.time() - start} seconds.\n")
+    if args.mesh:
+        print(f"[✓] Mesh: kernel launches per shard {mesh.launches}, {mesh.gathers} all-gathers.")
 
     start = time.time()
     print("Encrypted Evaluation:")

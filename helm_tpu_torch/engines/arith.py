@@ -21,8 +21,9 @@ the literal's position (circuit.rs:1337-1361); we evaluate positionally
 (`5 - x` means 5-x) by trivially encrypting the literal, which matches the
 plaintext oracle.
 
-Left out for now: `set_sharding` and the device mesh (ROADMAP.md item
-"Multi-device").
+`set_sharding` shards every merged bootstrap of this engine across a gate
+mesh (`parallel/mesh.py`); the mesh is the engine's (`ops.mesh`), where the
+reference sets the module global `radix.BATCH_SHARD`.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from ..fhe import lwe, pbs
 from ..fhe.ntt import to_host, words
 from ..fhe.server_key import gen_server_key
 from ..ops import mb_pbs
+from ..parallel import mesh as mesh_mod
 from ..params import DEFAULT_ARITH, TfheParams, warn_if_weak
 from . import radix
 from .radix import WIDTH_BLOCKS, RadixOps, trivial_blocks
@@ -71,6 +73,14 @@ class ArithEngine:
         if self.device.type == "cuda":
             mb_pbs.kernel_layouts(self.dsk)  # the kernels' key layouts, once, up front
         self.ops = RadixOps(self.params, self.dsk)
+
+    def set_sharding(self, batch_shard, repl_shard) -> None:
+        """Shard every radix PBS batch of this engine across the mesh
+        (`parallel/mesh.py`), and replicate the keys to the mesh's devices.
+        The wire table is always replicated, so `repl_shard` asks for
+        nothing more."""
+        self.ops.mesh = batch_shard.mesh
+        mesh_mod.key_replicas(self.dsk, batch_shard.mesh)
 
     def compile(self, netlist: Netlist) -> None:
         circuit = Circuit(netlist.gates, netlist.inputs, netlist.outputs, netlist.dff_outputs)
@@ -173,7 +183,7 @@ class ArithEngine:
                 break
             pres = [r[0] for reqs in pending for r in reqs]
             tvs = [r[1] for reqs in pending for r in reqs]
-            outs = radix._bootstrap_multi(self.dsk, pres, tvs)
+            outs = radix._bootstrap_multi(self.dsk, pres, tvs, self.ops.mesh)
             rounds += 1
             if verbose:
                 print(

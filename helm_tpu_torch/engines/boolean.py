@@ -27,10 +27,17 @@ serves the scan (`_stack_levels`), and each slot bootstraps alone, so the
 padding changes no word of a real wire. On the CPU fusing changes
 nothing: the loop runs eagerly on the plain versions.
 
+Gate sharding (`set_sharding`, `parallel/mesh.py`): every PBS batch goes
+through the mesh's exchange (`mesh.bootstrap_sharded`), the slots of each
+level padded to a power of two of at least the mesh size, as in the
+reference. A fused engine on a mesh captures the exchange too: the shard
+streams fork from and join the capture stream, and an NCCL all-gather is
+captured with them; a mesh over several cards of one process, or a gloo
+process group, raises at capture (`mesh.check_capturable`).
+
 The reference's TPU-only mechanics are left out: executable caching and
 AOT (`cached_jit`), the scan's chunking and crash clamps
-(`_max_chunk_levels`, the adaptive segments), the interpret switch and
-`shard_map`.
+(`_max_chunk_levels`, the adaptive segments) and the interpret switch.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from ..fhe import lwe, pbs
 from ..fhe.ntt import M32, to_host, words
 from ..fhe.server_key import gen_server_key
 from ..ops import mb_pbs
+from ..parallel import mesh as mesh_mod
 from ..params import DEFAULT_GATES, DEFAULT_LUT, Q, TfheParams, warn_if_weak
 
 _PLAN_FIELDS = (
@@ -65,9 +73,10 @@ def _lin_ops(wires, lp):
     wires[..., lp["lin_dst"], :] = lv & M32
 
 
-def _level_step(dsk, wires, lp, testv):
+def _level_step(dsk, wires, lp, testv, mesh=None):
     """One PBS level (boolean.py:33 `_level_body`), updating `wires` in place.
-    testv: [1, N] (gates) or one test polynomial per slot [S, N] (LUT)."""
+    testv: [1, N] (gates) or one test polynomial per slot [S, N] (LUT);
+    mesh: the gate mesh the bootstrap batch is sharded on, or None."""
     n = dsk.params.n
     ins = wires[..., lp["slot_in"], :]  # [.., S, 3, n+1]
     pre = (ins * lp["slot_coef"][..., None]).sum(dim=-2)
@@ -77,7 +86,7 @@ def _level_step(dsk, wires, lp, testv):
     pre = pre.reshape(-1, n + 1)
     if testv.shape[0] not in (1, pre.shape[0]):  # a batch: per-slot polys repeat
         testv = testv.repeat(pre.shape[0] // testv.shape[0], 1)
-    outs = mb_pbs.bootstrap(dsk, pre, testv)
+    outs = mesh_mod.bootstrap(mesh, dsk, pre, testv)
     outs = outs.reshape(lead + (-1, n + 1))
     wires[..., lp["slot_dst"], :] = outs
     mval = outs[..., lp["mux_pairs"][:, 0], :] + outs[..., lp["mux_pairs"][:, 1], :]
@@ -86,7 +95,7 @@ def _level_step(dsk, wires, lp, testv):
     _lin_ops(wires, lp)
 
 
-def _ready_step_gates(dsk, ready, new, valid, testv):
+def _ready_step_gates(dsk, ready, new, valid, testv, mesh=None):
     """valid <- mux(READY, new, valid), batched as one bootstrap launch
     (boolean.py:212). ready: [.., n+1]; new/valid: [.., n_out, n+1]."""
     n = dsk.params.n
@@ -96,14 +105,14 @@ def _ready_step_gates(dsk, ready, new, valid, testv):
     pre2 = valid - ready[..., None, :]
     pre2[..., n] += off
     both = torch.cat([pre1, pre2], dim=-2) & M32
-    outs = mb_pbs.bootstrap(dsk, both.reshape(-1, n + 1), testv).reshape(both.shape)
+    outs = mesh_mod.bootstrap(mesh, dsk, both.reshape(-1, n + 1), testv).reshape(both.shape)
     k = new.shape[-2]
     res = outs[..., :k, :] + outs[..., k:, :]
     res[..., n] += Q8
     return res & M32
 
 
-def _ready_step_lut(dsk, ready, new, valid, testv_and, delta):
+def _ready_step_lut(dsk, ready, new, valid, testv_and, delta, mesh=None):
     """valid <- new*READY + valid*(1-READY) (boolean.py:229), batched as
     one bootstrap launch. ready: [.., n+1]; new/valid: [.., n_out, n+1]."""
     n = dsk.params.n
@@ -112,7 +121,7 @@ def _ready_step_lut(dsk, ready, new, valid, testv_and, delta):
     pre1 = 2 * new + ready[..., None, :]
     pre2 = 2 * valid + not_ready[..., None, :]
     both = torch.cat([pre1, pre2], dim=-2) & M32
-    outs = mb_pbs.bootstrap(dsk, both.reshape(-1, n + 1), testv_and).reshape(both.shape)
+    outs = mesh_mod.bootstrap(mesh, dsk, both.reshape(-1, n + 1), testv_and).reshape(both.shape)
     k = new.shape[-2]
     return (outs[..., :k, :] + outs[..., k:, :]) & M32
 
@@ -121,15 +130,27 @@ def _ready_step_lut(dsk, ready, new, valid, testv_and, delta):
 class _LevelGraph:
     """One captured level program: `graph` reads and writes the static
     wire buffer `wires`, and launches the blind-rotation wrapper `rotation`'s
-    kernel `launches` times a replay."""
+    kernel `launches` times a replay; on a mesh, `shard_launches[s]` of them
+    on shard s, and `gathers` all-gathers."""
 
     graph: "torch.cuda.CUDAGraph"
     wires: torch.Tensor
     rotation: Callable
     launches: int
+    mesh: mesh_mod.GateMesh | None = None
+    shard_launches: tuple = ()
+    gathers: int = 0
+
+    def count_replay(self) -> None:
+        """Add one replay's launches (and gathers) to the counters."""
+        self.rotation.launches += self.launches
+        if self.mesh is not None:
+            for s, c in enumerate(self.shard_launches):
+                self.mesh.launches[s] += c
+            self.mesh.gathers += self.gathers
 
 
-def _scan_eval_step(run, wires: torch.Tensor, rotation) -> tuple[torch.Tensor, _LevelGraph]:
+def _scan_eval_step(run, wires: torch.Tensor, rotation, mesh=None) -> tuple[torch.Tensor, _LevelGraph]:
     """Fused level evaluation on the card: the counterpart of
     `helm_tpu/engines/boolean.py:124` `_scan_eval_step` (and, over
     several cycles, of `_scan_eval_cycles` :166), with a CUDA graph in
@@ -147,8 +168,9 @@ def _scan_eval_step(run, wires: torch.Tensor, rotation) -> tuple[torch.Tensor, _
     constants each launch reads on the host (`MbKernelKey.consts`, K6's CRT
     constants), which never change for a key. The capture launches
     nothing, so the launches `rotation` counted while capturing are taken
-    back and kept as the graph's `launches`, counted at each replay.
-    A capture that fails raises."""
+    back and kept as the graph's `launches`, counted at each replay (and so
+    are a mesh's shard launches and all-gathers). A capture that fails
+    raises."""
     dev = wires.device
     main = torch.cuda.current_stream(dev)
     out = wires.clone()
@@ -159,12 +181,19 @@ def _scan_eval_step(run, wires: torch.Tensor, rotation) -> tuple[torch.Tensor, _
         run(out)
     main.wait_stream(side)
     before = rotation.launches
+    shards = list(mesh.launches) if mesh is not None else []
+    gathers = mesh.gathers if mesh is not None else 0
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
         run(static)
-    launches = rotation.launches - before
+    entry = _LevelGraph(graph, static, rotation, rotation.launches - before)
     rotation.launches = before
-    return out, _LevelGraph(graph, static, rotation, launches)
+    if mesh is not None:
+        entry.mesh = mesh
+        entry.shard_launches = tuple(c - b for c, b in zip(mesh.launches, shards))
+        entry.gathers = mesh.gathers - gathers
+        mesh.launches[:], mesh.gathers = shards, gathers
+    return out, entry
 
 
 class BooleanEngine:
@@ -189,6 +218,8 @@ class BooleanEngine:
         self.fused = False
         self.replays = 0  # graph replays of fused evaluation, over the engine's life
         self._graphs: dict = {}
+        self.mesh: mesh_mod.GateMesh | None = None  # set_sharding
+        self._min_slots = 1
         self.mode = mode
         self.device = torch.device(device)
         self.params = params or (DEFAULT_GATES if mode == "gates" else DEFAULT_LUT)
@@ -209,6 +240,18 @@ class BooleanEngine:
             and_tab = np.array([((m >> 1) & 1) & (m & 1) for m in range(half)], np.uint64)
             self._testv_and = words(pbs.lut_test_poly(self.params, and_tab)[None, :], self.device)
 
+    def set_sharding(self, batch_shard, repl_shard) -> None:
+        """Enable gate sharding (before compile; `parallel/mesh.py`): every
+        PBS batch is split across `batch_shard.mesh`, each level padded to a
+        power of two of at least the mesh size; the keys are replicated to
+        the mesh's devices here, once. The wires are always replicated (every
+        process holds them whole), so `repl_shard` asks for nothing more."""
+        if self.plan is not None:
+            raise RuntimeError("set_sharding must be called before compile()")
+        self.mesh = batch_shard.mesh
+        self._min_slots = self.mesh.size
+        mesh_mod.key_replicas(self.dsk, self.mesh)
+
     # -- compilation ---------------------------------------------------
     def compile(self, netlist: Netlist) -> None:
         gates = binarize(netlist.gates)
@@ -222,6 +265,7 @@ class BooleanEngine:
         self.plan = build_plan(
             circuit, wire_set, self.params, self.mode,
             lut_test_poly_fn=lambda tab: pbs.lut_test_poly(self.params, tab),
+            min_slots=self._min_slots,
         )
         dev = self.device
 
@@ -334,7 +378,7 @@ class BooleanEngine:
                     _lin_ops(wires, lp)
                 else:
                     testv = lp["testv"] if self.mode == "lut" else self._testv_gates
-                    _level_step(self.dsk, wires, lp, testv)
+                    _level_step(self.dsk, wires, lp, testv, self.mesh)
                 if verbose:
                     ns = self.plan.levels[i].num_slots
                     print(
@@ -355,15 +399,19 @@ class BooleanEngine:
         what = f"all {total} levels" + (f" x {cycles} cycles" if cycles > 1 else "")
         entry = self._graphs.get(key)
         if entry is None:
+            if self.mesh is not None:
+                mesh_mod.check_capturable(self.mesh, wires.device)
             out, self._graphs[key] = _scan_eval_step(
-                lambda w: self._run_levels(w, cycles), wires, rotation
+                lambda w: self._run_levels(w, cycles), wires, rotation, self.mesh
             )
             if verbose:
-                print(f"  Evaluated {what} eagerly, then captured them in 1 CUDA graph")
+                g = self._graphs[key].gathers
+                print(f"  Evaluated {what} eagerly, then captured them in 1 CUDA graph"
+                      + (f" (with its {g} all-gathers)" if g else ""))
             return out
         entry.wires.copy_(wires)
         entry.graph.replay()
-        entry.rotation.launches += entry.launches
+        entry.count_replay()
         self.replays += 1
         if verbose:
             print(f"  Evaluated {what} in 1 graph replay")
@@ -416,9 +464,9 @@ class BooleanEngine:
         ready = wires[..., self.plan.wire_index["READY"], :]
         new = wires[..., idx, :]
         if self.mode == "gates":
-            return _ready_step_gates(self.dsk, ready, new, valid, self._testv_gates)
+            return _ready_step_gates(self.dsk, ready, new, valid, self._testv_gates, self.mesh)
         return _ready_step_lut(
-            self.dsk, ready, new, valid, self._testv_and, self.params.delta
+            self.dsk, ready, new, valid, self._testv_and, self.params.delta, self.mesh
         )
 
     # -- decryption ----------------------------------------------------

@@ -19,12 +19,19 @@ combination is masked with `M32` before it becomes a ciphertext (the
 largest, a compressor chunk of five terms, stays below 2^35). The
 reference's `x.at[idx].add(v)` is an in-place add on a fresh tensor.
 
+`RadixOps.mesh`, when set (`ArithEngine.set_sharding`), is a gate mesh
+(`parallel/mesh.py`): every merged bootstrap of that engine then goes
+through the mesh's exchange (`mesh.bootstrap_sharded`), still one merged
+launch in `LAUNCHES` and its real slots in `SLOTS`. The reference keeps the
+mesh in the module global `BATCH_SHARD`, which every later engine of the
+process inherits; here it belongs to the engine.
+
 Left out as TPU-only mechanics (ROADMAP.md "What the port leaves out"):
 the power-of-two bucket padding of each launch (:119-129, which exists to
-stop recompiles), the `HELM_TPU_MAX_G` width cap (:143-162, a TPU-worker
-crash clamp), `BATCH_SHARD` and `_bootstrap_sharded` (multi-device). Each
-slot bootstraps alone, so the output words are the reference's; `SLOTS`
-counts real slots, where the reference counts padded ones.
+stop recompiles) and the `HELM_TPU_MAX_G` width cap (:143-162, a
+TPU-worker crash clamp). Each slot bootstraps alone, so the output words
+are the reference's; `SLOTS` counts real slots, where the reference counts
+padded ones.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import torch
 
 from ..fhe import pbs
 from ..fhe.ntt import M32, words
-from ..ops import mb_pbs
+from ..parallel import mesh as mesh_mod
 from ..params import TfheParams
 
 WIDTH_BLOCKS = {"u8": 4, "u16": 8, "u32": 16, "u64": 32, "u128": 64}
@@ -76,11 +83,11 @@ class RadixTestPolys:
         self.msgc = tv(lambda m: ((m >> 1) + (m & 1)) % 4)
 
 
-def _bootstrap_multi(dsk, pres: list, tvs: list) -> list:
+def _bootstrap_multi(dsk, pres: list, tvs: list, mesh=None) -> list:
     """One bootstrap call for several (pre, testv) groups: the groups'
     pre-images side by side, each slot with its group's test polynomial
     (one [1, N] polynomial when every group shares it); the results split
-    back per group."""
+    back per group. On a gate mesh the call is sharded across it."""
     sizes = [p.shape[0] for p in pres]
     pre = torch.cat(pres) if len(pres) > 1 else pres[0]
     if all(t is tvs[0] for t in tvs):
@@ -89,17 +96,17 @@ def _bootstrap_multi(dsk, pres: list, tvs: list) -> list:
         tv = torch.cat([t.expand(s, t.shape[-1]) for s, t in zip(sizes, tvs)])
     LAUNCHES[0] += 1
     SLOTS[0] += pre.shape[0]
-    out = mb_pbs.bootstrap(dsk, pre, tv)
+    out = mesh_mod.bootstrap(mesh, dsk, pre, tv)
     return list(torch.split(out, sizes))
 
 
-def _run(dsk, gen):
+def _run(ops: "RadixOps", gen):
     """Drive one op coroutine to completion, launching every yielded
     request list immediately (the single-op / library-API path)."""
     try:
         reqs = gen.send(None)
         while True:
-            outs = _bootstrap_multi(dsk, [r[0] for r in reqs], [r[1] for r in reqs])
+            outs = _bootstrap_multi(ops.dsk, [r[0] for r in reqs], [r[1] for r in reqs], ops.mesh)
             reqs = gen.send(outs)
     except StopIteration as e:
         return e.value
@@ -216,11 +223,13 @@ class RadixOps:
     """Device key + test polys + the radix op suite.
 
     `*_g` methods are coroutines (yield PBS request lists, receive
-    results); the plain methods drive them synchronously."""
+    results); the plain methods drive them synchronously. `mesh`: the gate
+    mesh every bootstrap is sharded on, or None."""
 
-    def __init__(self, params: TfheParams, dsk):
+    def __init__(self, params: TfheParams, dsk, mesh=None):
         self.params = params
         self.dsk = dsk
+        self.mesh = mesh
         self.tp = RadixTestPolys(params, dsk.device)
 
     # -- add / sub -----------------------------------------------------
@@ -605,40 +614,40 @@ class RadixOps:
 
     # -- synchronous single-op runners ----------------------------------
     def add(self, x, y, with_carry: bool = False):
-        return _run(self.dsk, self.add_g(x, y, with_carry=with_carry))
+        return _run(self, self.add_g(x, y, with_carry=with_carry))
 
     def sub(self, x, y, with_carry: bool = False):
-        return _run(self.dsk, self.sub_g(x, y, with_carry=with_carry))
+        return _run(self, self.sub_g(x, y, with_carry=with_carry))
 
     def add_sub_mixed(self, x, y, is_sub):
-        return _run(self.dsk, self.add_sub_mixed_g(x, y, is_sub))
+        return _run(self, self.add_sub_mixed_g(x, y, is_sub))
 
     def add_scalar_block0(self, x, v: int):
-        return _run(self.dsk, self.add_scalar_block0_g(x, v))
+        return _run(self, self.add_scalar_block0_g(x, v))
 
     def mul(self, x, y, square: bool = False):
-        return _run(self.dsk, self.mul_g(x, y, square=square))
+        return _run(self, self.mul_g(x, y, square=square))
 
     def mul_plain(self, x, c: int):
-        return _run(self.dsk, self.mul_plain_g(x, c))
+        return _run(self, self.mul_plain_g(x, c))
 
     def div(self, x, y):
-        return _run(self.dsk, self.div_g(x, y))
+        return _run(self, self.div_g(x, y))
 
     def div_plain(self, x, d: int):
-        return _run(self.dsk, self.div_plain_g(x, d))
+        return _run(self, self.div_plain_g(x, d))
 
     def ge(self, x, y):
-        return _run(self.dsk, self.ge_g(x, y))
+        return _run(self, self.ge_g(x, y))
 
     def shift_plain(self, x, amount: int, left: bool):
-        return _run(self.dsk, self.shift_plain_g(x, amount, left))
+        return _run(self, self.shift_plain_g(x, amount, left))
 
     def shift_plain_many(self, x, amounts, left: bool):
-        return _run(self.dsk, self.shift_plain_many_g(x, amounts, left))
+        return _run(self, self.shift_plain_many_g(x, amounts, left))
 
     def shift_ct(self, x, y, left: bool):
-        return _run(self.dsk, self.shift_ct_g(x, y, left))
+        return _run(self, self.shift_ct_g(x, y, left))
 
     def _mux_blocks(self, sel, a, b):
-        return _run(self.dsk, self._mux_blocks_g(sel, a, b))
+        return _run(self, self._mux_blocks_g(sel, a, b))

@@ -136,6 +136,9 @@ class ChaChaGenerator:
         return out
 
     # -- numpy.random.Generator-compatible slice ------------------------
+    def bytes(self, length: int) -> bytes:
+        return self.random_u32((length + 3) // 4).tobytes()[:length]
+
     def integers(self, low, high=None, size=None, dtype=np.int64):
         """Uniform integers in [low, high) (numpy Generator convention)."""
         if high is None:

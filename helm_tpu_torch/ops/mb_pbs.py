@@ -265,20 +265,24 @@ _slots: dict = {}
 def cluster_slots(dsk: pbs.DeviceServerKey, gt: int, kernel: str = "blind_rotate_mb") -> int:
     """The clusters of `kernel` (csrc/<kernel>.cu: K1, K6, K2, K4 or K3)
     the card holds at once for tiles of gt gates at dsk's set
-    (cudaOccupancyMaxActiveClusters), asked once per kernel, set and tile.
+    (cudaOccupancyMaxActiveClusters), asked once per kernel, set, tile and
+    card (the key's, whichever device is current).
     Raises unless the kernel's shared memory for the tile, from its own
     layout, is `smem_bytes`'s."""
     p = dsk.params
-    key = (kernel, p.name, p.n, p.N, p.k, p.grouping, p.component_gadgets, gt, torch.cuda.current_device())
+    dev = dsk.bsk_ntt.device
+    key = (kernel, p.name, p.n, p.N, p.k, p.grouping, p.component_gadgets, gt, dev.index)
     if key not in _slots:
         (mbl, mlv), (bl, lv) = p.component_gadgets[0], p.component_gadgets[-1]
         kk = mb_server_key(dsk)
         out, smem = ctypes.c_int(0), ctypes.c_int(0)
         symbol = f"helm_{kernel}_clusters"
-        rc = build.entry(kernel, _SLOT_ARGTYPES, symbol)(
-            kk.consts, p.n, p.N, p.k, p.grouping, mbl, mlv, bl, lv, gt, kk.chunk,
-            2 if _narrow(p) else 4, ctypes.byref(out), ctypes.byref(smem),
-        )
+        # on the key's card, whichever is current (-1, no switch: a CPU key)
+        with torch.cuda.device(dev.index if dev.type == "cuda" else -1):
+            rc = build.entry(kernel, _SLOT_ARGTYPES, symbol)(
+                kk.consts, p.n, p.N, p.k, p.grouping, mbl, mlv, bl, lv, gt, kk.chunk,
+                2 if _narrow(p) else 4, ctypes.byref(out), ctypes.byref(smem),
+            )
         build.check(rc, symbol)
         want = smem_bytes(p, gt, kk.chunk, kernel)
         if smem.value != want:
@@ -444,13 +448,16 @@ def rotate_tiles(kernel: str, dsk: pbs.DeviceServerKey, lwe_in: torch.Tensor, te
     abar = ops.mod_switch(lwe_in[:, :n], N).to(torch.int32).contiguous()
     (mbl, mlv), (bl, lv) = p.component_gadgets[0], p.component_gadgets[-1]
     argtypes = _ARGTYPES[:8] + [t for t, _ in extra] + _ARGTYPES[8:]
-    rc = build.entry(kernel, argtypes)(
-        acc.data_ptr(), abar.data_ptr(), bsk.data_ptr(),
-        twf.data_ptr(), twi.data_ptr(), key.pw.data_ptr(),
-        key.swizzle.data_ptr(), key.consts, *(v for _, v in extra),
-        G, n, N, k, p.grouping, mbl, mlv, bl, lv, plan.gt, plan.chunk, bsk.element_size(),
-        torch.cuda.current_stream(lwe_in.device).cuda_stream,
-    )
+    # the C entry launches in the current device's context: make it the
+    # inputs' card, which a mesh shard need not be
+    with torch.cuda.device(lwe_in.device):
+        rc = build.entry(kernel, argtypes)(
+            acc.data_ptr(), abar.data_ptr(), bsk.data_ptr(),
+            twf.data_ptr(), twi.data_ptr(), key.pw.data_ptr(),
+            key.swizzle.data_ptr(), key.consts, *(v for _, v in extra),
+            G, n, N, k, p.grouping, mbl, mlv, bl, lv, plan.gt, plan.chunk, bsk.element_size(),
+            torch.cuda.current_stream(lwe_in.device).cuda_stream,
+        )
     build.check(rc, f"helm_{kernel}")
     return from_i32_bits(acc)
 

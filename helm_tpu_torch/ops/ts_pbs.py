@@ -179,11 +179,12 @@ def four_step_kernel(dsk: pbs.DeviceServerKey, x: torch.Tensor, inverse: bool = 
     tkey = ts_server_key(dsk)
     xin = x.to(torch.int32).contiguous()
     out = torch.empty_like(xin)
-    rc = build.entry("blind_rotate_ts", _FOUR_STEP_ARGTYPES, "helm_ts_four_step")(
-        xin.data_ptr(), out.data_ptr(), int(inverse), x.shape[0], N,
-        tkey.bfwd.data_ptr(), tkey.binv.data_ptr(), tkey.twf.data_ptr(), tkey.twi.data_ptr(),
-        tkey.stw.data_ptr(), mb_server_key(dsk).consts, tkey.ts_consts.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):  # the C entry launches on the current device
+        rc = build.entry("blind_rotate_ts", _FOUR_STEP_ARGTYPES, "helm_ts_four_step")(
+            xin.data_ptr(), out.data_ptr(), int(inverse), x.shape[0], N,
+            tkey.bfwd.data_ptr(), tkey.binv.data_ptr(), tkey.twf.data_ptr(), tkey.twi.data_ptr(),
+            tkey.stw.data_ptr(), mb_server_key(dsk).consts, tkey.ts_consts.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     build.check(rc, "helm_ts_four_step")
     return out.to(torch.int64)

@@ -10,7 +10,8 @@ wider, which amortizes the per-launch blind-rotation latency:
         [--batch 8] [--linger 0.5] [--max-batches N] [--device cuda]
 
 Each `*.csv` file appearing in the watch directory is one input-wire
-vector (the reference's input CSV format, read by `io/csv_io.py`).
+vector (the reference's input CSV format, parsed in C++ by
+`io/native_loader.py`, as the reference's daemon does).
 Vectors are collected into fixed-size batches (a partial batch after
 `--linger` seconds of quiet, padded with repeats of its first vector),
 evaluated, and each vector's decrypted outputs are written to
@@ -40,7 +41,7 @@ import sys
 import time
 
 from .circuit.verilog import read_verilog_file
-from .io import csv_io
+from .io import csv_io, native_loader
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -295,6 +296,7 @@ def main(argv=None) -> int:
             f.write(f"{err}\n")
         print(f"[serve] WARNING: rejected {name}: {err}", flush=True)
 
+    native_loader.load()  # a failed build raises here, not as a malformed request
     batches = 0
     stat_cache: dict = {}
     while True:
@@ -302,7 +304,7 @@ def main(argv=None) -> int:
         vecs, ok_names = [], []
         for f in names:
             try:
-                vec = csv_io.read_input_wires(os.path.join(args.watch, f), ptxt)
+                vec = native_loader.read_input_wires(os.path.join(args.watch, f), ptxt)
                 if not vec:
                     # a serving input that parses to nothing is a malformed
                     # file, not a request for all-false inputs

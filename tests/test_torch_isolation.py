@@ -123,6 +123,32 @@ def test_arith_cli_in_a_fresh_interpreter_imports_neither(tmp_path):
     assert csv_io.read_input_wires(str(out), "u8") == {w: exp[w] for w in nl.outputs}
 
 
+def test_mesh_cli_in_a_fresh_interpreter_imports_neither(tmp_path):
+    """The CLI on a mesh of two virtual CPU shards (`--mesh 2`, the
+    parallel package) in a fresh interpreter: the golden CSV, and neither
+    JAX nor helm_tpu was imported."""
+    out = tmp_path / "out.csv"
+    argv = ["-v", "benchmarks/netlists/2-bit-adder.v", "-i", "benchmarks/test-cases/2-bit-adder.inputs.csv",
+            "-o", str(out), "--test-params", "--device", "cpu", "--seed", "7", "--mesh", "2"]
+    code = textwrap.dedent(
+        f"""
+        import sys
+        from helm_tpu_torch import cli
+        assert cli.main({argv!r}) == 0
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+        assert not leaked, leaked
+        print("ISOLATED_OK")
+        """
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=ROOT,
+    )
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    assert "ISOLATED_OK" in res.stdout and "Gate batches sharded on GateMesh('gates': 2 shards" in res.stdout
+    assert csv_io.read_input_wires(str(out), "bool") == csv_io.read_input_wires(
+        str(ROOT / "benchmarks/test-cases/2-bit-adder.outputs.csv"), "bool")
+
+
 def test_serve_and_sweep_in_a_fresh_interpreter_import_neither(tmp_path):
     """The daemon (one-shot, --device cpu) on the golden 2-bit-adder
     vector, with K4's and K3's wrappers and the multi-bit sweep imported

@@ -106,6 +106,15 @@ def test_keygen_entry_points_default_to_the_card():
 
 
 def test_encrypt_many_is_encrypt_with_its_stream():
+    """Below its threshold encrypt_many is encrypt() and its stream; at or
+    above it (the reference's 8192), the C++ encryptor keyed by 32 bytes of
+    that stream (io/native_loader.py, as the reference routes it)."""
+    from helm_tpu_torch.io import native_loader
+
     a, b = lwe.keygen(P.TEST_PARAMS, 3), lwe.keygen(P.TEST_PARAMS, 3)
-    mu = lwe.encode_bool(np.arange(20000) % 3 == 0)  # above the reference's native threshold
-    np.testing.assert_array_equal(lwe.encrypt_many(a, mu), lwe.encrypt(b, mu))
+    mu = lwe.encode_bool(np.arange(20000) % 3 == 0)
+    np.testing.assert_array_equal(lwe.encrypt_many(a, mu, native_threshold=20001), lwe.encrypt(b, mu))
+    np.testing.assert_array_equal(
+        lwe.encrypt_many(a, mu),
+        native_loader.encrypt_batch(b.lwe_key, mu, P.TEST_PARAMS.lwe_noise_std, seed=b.rng.bytes(32)),
+    )
