@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only device,build,k1,k6
     python3 chip_smoke.py --only device,build,k1,k4,k3
     python3 chip_smoke.py --only device,build,k1,k6,k2
+    python3 chip_smoke.py --only device,build,probes,tools
 
 Phases, in order (each prints one line, with its seconds):
   device  the card's name and power limit (nvidia-smi), torch / CUDA versions
@@ -56,6 +57,23 @@ Phases, in order (each prints one line, with its seconds):
           GATES_PARAMS (6 rows) at G=37, LUT_PARAMS (N=2048) at the LUT
           adder's level width and G=37 and ARITH_PARAMS (N=2048, 6 rows) at
           G=8 and 1024 (per-gate test polynomials)
+  probes  main path of the reference's four Pallas probes, ported as K7
+          (ops/probes.py expand8, csrc/probe_expand8.cu), K8 (splat) and
+          K9 (liveset, both csrc/probe_splat.cu) and K10 (ptw,
+          csrc/probe_ptw.cu): each against its plain torch version on the
+          card, tolerance 0, K7 at [6144, 8] -> [6144, 128] (and against
+          np.tile), K8's four variants at 8 steps and splat at 512, K9's 60
+          builds (R 1-8 x A 1-16 x splat, red, two) at 4 steps and R=8
+          A=12 at 256, K10's five patterns at 3 steps and C at 64; the
+          timed shapes' kernel, plain and library times and bounds go into
+          the kernels line (library: x.repeat(1, 16) for K7; for K10's C
+          the bf16 torch.matmul of one (unit, group)'s six products, times
+          the run's 1536 of them; none for K8 and K9). Then, with the four
+          probes' counts set to 0, the probe tools (helm_tpu_torch/tools/
+          expand8_probe, splat_repro, liveset_harness, ptw_probe) at the
+          reference's defaults: their rates, registers a thread and spill
+          bytes (cudaFuncGetAttributes of each build); their launches are
+          the phase's
   batch   main path: G=1024 AND gates at GATES_128_K3 (K1, keys seed 2024)
           through mb_pbs.bootstrap, decrypted against the truth table;
           bootstraps/s
@@ -131,6 +149,18 @@ Phases, in order (each prints one line, with its seconds):
           With two or more cards, make_gate_mesh(count) and the CLI on
           NCCL across them too; else it prints that the exchange across
           cards is not measured
+  tools   main path of the reference's measurement tools, ported to
+          helm_tpu_torch/tools with the keys of the earlier phases:
+          family_bench at GATES_128_K3 on c1908-like, c6288-like,
+          c880-like x 8 and s386-like x 4 cycles (CYCFUSE=1) and in LUT
+          mode at LUT_128_K2 on both LUT adders (every wire of every cycle
+          against the oracle); aes_bench at GATES_128_K3 fused (all 358
+          levels in one CUDA graph) at BATCH 0 and 4 (every ciphertext
+          against the oracle, FIPS-197 C.1); chi2_bench on chi-squared u32
+          at ARITH_PARAMS (K2) and on chi-squared u32, euclidean u32 and
+          box blur u16 at ARITH_128_MB2 (K1), against evaluate_arith;
+          noise_validate at GATES_128_K3 over 2^18 samples (0 decision
+          failures) and noise_decompose over 8192; their RESULT lines
   cli     python -m helm_tpu_torch.cli --device cuda (default sets), four
           subprocesses started together: the 2-bit adder (with --profile
           DIR: its Chrome trace must name rotate_tiles), the LUT adder and
@@ -153,8 +183,8 @@ Phases, in order (each prints one line, with its seconds):
           replay
 
 The kernels' launch counters are set to 0 just before each main-path phase
-(batch, c880, g1, lut, arith, baseline, ps, serve, sweep, mesh) and read
-just after it;
+(probes, batch, c880, g1, lut, arith, baseline, ps, serve, sweep, mesh,
+tools; in probes again after its comparisons) and read just after it;
 the kernel JSON line reports the sums. A graph replay launches its
 kernels without calling their wrappers: the engine adds, at each replay,
 the launches the wrapper counted while the graph was captured (and takes
@@ -164,7 +194,12 @@ replay. A kernel's bound_ms is the larger
 of its integer operations over the card's INT32 rate and its bytes over
 the memory rate (int_ops and min_bytes below; K6, K4 and K3 compute K1's
 function: the same transforms, products and bytes, whatever their
-transform's form, fold or monomial construction). Exits non-zero on
+transform's form, fold or monomial construction); K7-K10's is the larger
+of their FP32 operations over the FP32 instruction rate, 132 SMs x 128
+lanes x 1.98 GHz = 33.45e12 a second (a multiply and an add are one
+instruction each, as the kernels never fuse them; the 67 TFLOP/s peak
+counts a fused multiply-add as two), C's bf16 products over 989 TFLOP/s,
+and their bytes over the memory rate (tools/probe_timing.py). Exits non-zero on
 any failure, and when no CUDA device is present. Imports nothing of JAX
 and nothing of the JAX package.
 """
@@ -184,11 +219,13 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = (
-    "device", "build", "k1", "k6", "k4", "k3", "k2", "batch", "c880", "g1", "lut", "arith",
-    "baseline", "ps", "serve", "sweep", "mesh", "cli", "bench", "profile",
+    "device", "build", "k1", "k6", "k4", "k3", "k2", "probes", "batch", "c880", "g1", "lut", "arith",
+    "baseline", "ps", "serve", "sweep", "mesh", "tools", "cli", "bench", "profile",
 )
-MAIN_PATH = ("batch", "c880", "g1", "lut", "arith", "baseline", "ps", "serve", "sweep", "mesh")
+MAIN_PATH = ("probes", "batch", "c880", "g1", "lut", "arith", "baseline", "ps", "serve", "sweep", "mesh", "tools")
 KERNELS = ("blind_rotate_mb", "blind_rotate_sb", "blind_rotate_ps", "blind_rotate_ts", "blind_rotate_gm")
+#: the probes' sources (K7; K8 and K9; K10), built with the kernels
+PROBE_SOURCES = ("probe_expand8", "probe_splat", "probe_ptw")
 
 #: H100 SXM peaks used for bound_ms: 132 SMs x 64 INT32 lanes x 1.98 GHz
 #: boost (the guide's table has no INT32 row; its 67 TFLOP/s FP32 is the
@@ -363,6 +400,30 @@ class Smoke:
                 "source": "helm_tpu_torch/csrc/blind_rotate_gm.cu",
                 "replaces": "helm_tpu/ops/mxu_pbs.py:1811",
             },
+            "expand8": {
+                "name": "expand8",
+                "route": "cuda",
+                "source": "helm_tpu_torch/csrc/probe_expand8.cu",
+                "replaces": "tools/expand8_hw_test.py:18",
+            },
+            "splat": {
+                "name": "splat",
+                "route": "cuda",
+                "source": "helm_tpu_torch/csrc/probe_splat.cu",
+                "replaces": "tools/mosaic_splat_repro.py:94",
+            },
+            "liveset": {
+                "name": "liveset",
+                "route": "cuda",
+                "source": "helm_tpu_torch/csrc/probe_splat.cu",
+                "replaces": "tools/liveset_harness.py:111",
+            },
+            "ptw": {
+                "name": "ptw",
+                "route": "cuda",
+                "source": "helm_tpu_torch/csrc/probe_ptw.cu",
+                "replaces": "tools/ptw_probe.py:213",
+            },
         }
         for k in self.kernel.values():
             k.update(launches=0, max_abs_err=None, ms=None, plain_ms=None,
@@ -404,8 +465,10 @@ class Smoke:
     def phase_build(self):
         from helm_tpu_torch.ops import build
 
-        build.load_all(KERNELS)
-        return f"helm_tpu_torch/csrc/{{{','.join(KERNELS)}}}.cu -> {build.BUILD_DIR.name}/"
+        t0 = time.perf_counter()
+        build.load_all(KERNELS + PROBE_SOURCES)
+        return (f"helm_tpu_torch/csrc/{{{','.join(KERNELS + PROBE_SOURCES)}}}.cu -> {build.BUILD_DIR.name}/ "
+                f"in {time.perf_counter() - t0:.2f} s")
 
     def _check_kernel(self, name, label, plain, kernel, cases, timed, detail=None):
         """Hold `kernel` against the plain words word for word on every case
@@ -1491,6 +1554,159 @@ class Smoke:
             shutil.rmtree(td, ignore_errors=True)
         return "; ".join(notes)
 
+    def phase_probes(self):
+        """K7-K10 against their plain versions on the card, tolerance 0:
+        every variant and build at a few steps, the timed shape of each at
+        the reference's steps (its kernel, plain and library times and its
+        bound into the kernels line); then, with the four probes' counts
+        set to 0 again, the four probe tools at the reference's
+        defaults, whose launches are this phase's."""
+        import numpy as np
+        import torch
+
+        from helm_tpu_torch.ops import probes
+        from helm_tpu_torch.tools import expand8_probe, liveset_harness, ptw_probe, splat_repro
+        from helm_tpu_torch.tools.probe_timing import bound_s
+
+        dev = torch.device(self.device)
+        notes = []
+
+        def equal(what, got, ref):
+            if not torch.equal(got, ref):
+                diff = (got.double() - ref.double()).abs().max().item()
+                raise AssertionError(f"{what}: kernel != plain (max |diff| {diff})")
+            return 0.0
+
+        def record(name, ms, plain_ms, ops, nbytes, library_ms=None, bf16=0.0):
+            b, by = bound_s(ops, bf16, nbytes)
+            self.kernel[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b * 1e3, bound_by=by,
+                                     library_ms=library_ms, max_abs_err=0.0)
+            notes.append(f"{name} {ms:.6f} ms (plain {plain_ms:.6f}, bound {b * 1e3:.6f} {by}"
+                         + (f", library {library_ms:.6f}" if library_ms is not None else "") + ")")
+
+        # K7 at the reference's shape; library: one repeat of x
+        x, e8 = expand8_probe.inputs()
+        xd = torch.from_numpy(x.astype(np.int32)).to(dev)
+        ed = torch.from_numpy(np.ascontiguousarray(e8[:, : expand8_probe.L])).to(dev)
+        ms, got = _time_ms(lambda: probes.expand8(xd, ed), reps=30)
+        plain_ms, ref = _time_ms(lambda: probes.expand8_plain(xd, ed), reps=3)
+        equal("K7", got, ref)
+        assert np.array_equal(got.cpu().numpy().astype(np.uint32), np.tile(x, (1, 16))), "K7 != np.tile(x, (1, 16))"
+        lib_ms, _ = _time_ms(lambda: xd.repeat(1, 16), reps=30)
+        record("expand8", ms, plain_ms, *expand8_probe.work(), library_ms=lib_ms)
+
+        # K8: every variant at 8 steps; timed: splat at the reference's 512
+        cols8, rows = (torch.from_numpy(a).to(dev) for a in splat_repro.inputs(8))
+        for v in probes.SPLAT_VARIANTS:
+            c = cols8.to(torch.int16) if v == "i16" else cols8
+            equal(f"K8 {v} (8 steps)", probes.splat(c, rows, v), probes.splat_plain(c, rows, v))
+        cols, rows = (torch.from_numpy(a).to(dev) for a in splat_repro.inputs(512))
+        ms, got = _time_ms(lambda: probes.splat(cols, rows, "splat"), reps=30)
+        plain_ms, ref = _time_ms(lambda: probes.splat_plain(cols, rows, "splat"), warm=False)
+        equal("K8 splat (512 steps)", got, ref)
+        record("splat", ms, plain_ms, *splat_repro.work(512, "splat"))
+
+        # K9: every (R, A, variant) build at 4 steps; timed: the fs nest, R=8 A=12
+        rng = np.random.default_rng(7)
+        cols4 = cols[:4].contiguous()
+        for R in probes.LIVESET_RS:
+            rowsR = torch.from_numpy(rng.integers(-128, 129, (2 * R, 64, 512)).astype(np.float32)).to(dev)
+            for A in probes.LIVESET_AS:
+                for v in probes.LIVESET_VARIANTS:
+                    equal(f"K9 R={R} A={A} {v} (4 steps)", probes.liveset(cols4, rowsR, A, v),
+                          probes.liveset_plain(cols4, rowsR, A, v))
+        cols256 = cols[:256].contiguous()
+        ms, got = _time_ms(lambda: probes.liveset(cols256, rowsR, 12, "splat"), reps=10)
+        plain_ms, ref = _time_ms(lambda: probes.liveset_plain(cols256, rowsR, 12, "splat"), warm=False)
+        equal("K9 R=8 A=12 splat (256 steps)", got, ref)
+        record("liveset", ms, plain_ms, *splat_repro.work(256, "splat", 8))
+
+        # K10: every pattern at 3 steps; timed: C at the reference's 64 steps.
+        # Library: the six bf16 products of one (unit, group) are the three
+        # limb matrices [3 x 64, 512] by the two feedback limbs [512, 2 x
+        # 512]; a step's units x groups of them share the feedback, so a
+        # step is one torch.matmul of the stacked limb matrices [units x
+        # groups x 3 x 64, 512] by [512, 2 x 512], and the run 64 of them
+        data = {k: [torch.from_numpy(a).to(dev) for a in v] for k, v in ptw_probe.inputs(probes.PTW_PATTERNS).items()}
+        for pat in probes.PTW_PATTERNS:
+            equal(f"K10 {pat} (3 steps)", probes.ptw(pat, data[pat], 3), probes.ptw_plain(pat, data[pat], 3))
+        ms, got = _time_ms(lambda: probes.ptw("C", data["C"], 64), reps=3)
+        plain_ms, ref = _time_ms(lambda: probes.ptw_plain("C", data["C"], 64), warm=False)
+        equal("K10 C (64 steps)", got, ref)
+        a = torch.randint(-128, 129, (2 * probes.NVC * 3 * 64, 512), device=dev).to(torch.bfloat16)
+        b = torch.randint(-128, 129, (512, 2 * 512), device=dev).to(torch.bfloat16)
+        lib_ms, _ = _time_ms(lambda: torch.matmul(a, b), reps=64)
+        fp32, bf16, nbytes = ptw_probe.work("C", 64, 2)
+        record("ptw", ms, plain_ms, fp32, nbytes, library_ms=lib_ms * 64, bf16=bf16)
+        checks = ("K7; K8 x 4 variants; K9 x 60 builds; K10 x 5 patterns: kernel == plain (tolerance 0)")
+
+        # the probe tools, as a user runs them: this phase's launches
+        for w in (probes.expand8, probes.splat, probes.liveset, probes.ptw):
+            w.launches = 0
+        assert expand8_probe.run(dev, 30)["match"]
+        splat_repro.run(dev, 512, 30, probes.SPLAT_VARIANTS)
+        liveset_harness.run(dev, 256, 10, 512, probes.LIVESET_RS, probes.LIVESET_AS, probes.LIVESET_VARIANTS)
+        ptw_probe.run(dev, probes.PTW_PATTERNS, 64, 20)
+        return f"{checks}; " + "; ".join(notes) + "; the four probe tools' lines printed above"
+
+    def phase_tools(self):
+        """The reference's measurement tools through their ports, with the
+        keys of the earlier phases: family_bench at GATES_128_K3 (c1908,
+        c6288, c880 x 8, s386 x 4 cycles fused) and in LUT mode at
+        LUT_128_K2 (both LUT adders), aes_bench at GATES_128_K3 fused at
+        BATCH 0 and 4, chi2_bench (chi-squared u32 at ARITH_PARAMS: K2;
+        chi-squared u32, euclidean u32 and box blur u16 at ARITH_128_MB2:
+        K1), noise_validate at GATES_128_K3 over 2^18 samples and
+        noise_decompose over 8192: every output right, 0 decision
+        failures."""
+        import torch
+
+        from helm_tpu_torch import params as P
+        from helm_tpu_torch.tools import aes_bench, chi2_bench, family_bench, noise_decompose, noise_validate
+
+        dev = torch.device(self.device)
+        keys = {}
+        for p, seed in ((P.GATES_128_K3, 2024), (P.LUT_128_K2, 2025), (P.ARITH_128_MB2, 2030),
+                        (P.ARITH_PARAMS, 2033)):
+            ck, sk, _ = self.keys_for(p, seed)
+            keys[p.name] = (ck, sk)
+        notes = []
+
+        def timed(what, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            notes.append(f"{what} {time.perf_counter() - t0:.2f} s")
+            return out
+
+        nets = "benchmarks/netlists/"
+        for env in (
+            {"PSET": "GATES_128_K3", "CYCFUSE": "1", "NETLISTS": f"{nets}c1908-like.v {nets}c6288-like.v "
+             f"{nets}c880-like.v:8 {nets}s386-like.v:0:4"},
+            {"MODE": "lut", "PSET": "LUT_128_K2",
+             "NETLISTS": f"{nets}8-bit-adder-lut-2-1.v {nets}8-bit-adder-lut-3-1.v"},
+        ):
+            for r in timed(f"family_bench {env.get('MODE', 'gates')}", lambda: family_bench.run(env, dev, keys)):
+                assert r["correct"], f"family_bench {r['family']}: correct false"
+        for B in (0, 4):
+            r = timed(f"aes_bench BATCH={B}", lambda: aes_bench.run(
+                {"PSET": "GATES_128_K3", "FUSE": "1", "BATCH": str(B)}, dev, keys))
+            assert r["fused"], "aes_bench: the engine did not fuse"
+            assert r["correct"], f"aes_bench BATCH={B}: a ciphertext is wrong"
+            assert r["ciphertexts"][0] == aes_bench.C1, f"aes_bench: C.1 gave {r['ciphertexts'][0]}"
+            print("RESULT " + json.dumps({k: v for k, v in r.items() if k != "ciphertexts"}), flush=True)
+        for env in ({"NETLIST": f"{nets}chi_squared_arith.v", "WIDTH": "u32"},
+                    {"PARAMS": "ARITH_128_MB2", "NETLISTS": f"{nets}chi_squared_arith.v:u32 "
+                     f"{nets}euclidean_arith.v:u32 {nets}box_blur_arith.v:u16"}):
+            for r in timed(f"chi2_bench {env.get('PARAMS', 'ARITH_PARAMS')}", lambda: chi2_bench.run(env, dev, keys)):
+                assert r["correct"], f"chi2_bench {r['family']} {r['width']}: correct false"
+        r = timed("noise_validate 2^18", lambda: noise_validate.run(
+            {"PSET": "GATES_128_K3", "SAMPLES": str(1 << 18)}, dev, keys))
+        assert r["decision_failures"] == 0, f"noise_validate: {r['decision_failures']} decision failures"
+        timed("noise_decompose 8192", lambda: noise_decompose.run({"PSET": "GATES_128_K3", "SAMPLES": "8192"},
+                                                                   dev, keys))
+        return ("every family correct, AES C.1 = " + aes_bench.C1 + " and every block right, every arith "
+                "output = its oracle, 0 noise decision failures (RESULT lines above); " + "; ".join(notes))
+
     def phase_cli(self):
         """The CLI in four subprocesses, started together (each pays its own
         keygen on the host): the 2-bit adder with --profile DIR, the LUT
@@ -1576,7 +1792,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
     smoke = Smoke("cuda")
-    from helm_tpu_torch.ops import gm_pbs, mb_pbs, ps_pbs, sb_pbs, ts_pbs
+    from helm_tpu_torch.ops import gm_pbs, mb_pbs, probes, ps_pbs, sb_pbs, ts_pbs
 
     wrappers = {
         "blind_rotate_mb": mb_pbs.blind_rotate_mb,
@@ -1584,6 +1800,10 @@ def main(argv=None) -> int:
         "blind_rotate_ps": ps_pbs.blind_rotate_ps,
         "blind_rotate_ts": ts_pbs.blind_rotate_ts,
         "blind_rotate_gm": gm_pbs.blind_rotate_gm,
+        "expand8": probes.expand8,
+        "splat": probes.splat,
+        "liveset": probes.liveset,
+        "ptw": probes.ptw,
     }
     #: the kernels each main-path phase must launch
     expect = {"batch": ("blind_rotate_mb",), "c880": ("blind_rotate_mb",),
@@ -1592,7 +1812,9 @@ def main(argv=None) -> int:
               "ps": ("blind_rotate_ps", "blind_rotate_mb"),
               "serve": ("blind_rotate_ts", "blind_rotate_mb"),
               "sweep": ("blind_rotate_mb", "blind_rotate_ps", "blind_rotate_ts", "blind_rotate_gm"),
-              "mesh": ("blind_rotate_mb", "blind_rotate_sb")}
+              "mesh": ("blind_rotate_mb", "blind_rotate_sb"),
+              "probes": ("expand8", "splat", "liveset", "ptw"),
+              "tools": ("blind_rotate_mb", "blind_rotate_sb")}
     for name in PHASES:
         if name not in only:
             continue

@@ -92,16 +92,18 @@ def _card_line() -> str:
     ).stdout.strip().splitlines()[0].strip()
 
 
-def _keys(p, device):
-    """The client and server keys of seed 2024 at set p: from
-    BENCH_KEY_CACHE when there, else generated (and saved there)."""
+def _keys(p, device, seed=SEED):
+    """The client and server keys of `seed` (the bench's: 2024) at set p:
+    from BENCH_KEY_CACHE when there, else generated (and saved there).
+    The noise tools (`tools/noise_validate.py`, `noise_decompose.py`)
+    share this cache."""
     from .fhe import keys as K
     from .fhe import lwe
     from .fhe.server_key import gen_server_key
 
     cache = os.environ.get("BENCH_KEY_CACHE", str(ROOT / "build" / "bench_keys"))
-    ckp = os.path.join(cache, f"bench_ck_{p.name}_s{SEED}.npz") if cache else ""
-    skp = os.path.join(cache, f"bench_sk_{p.name}_s{SEED}.npz") if cache else ""
+    ckp = os.path.join(cache, f"bench_ck_{p.name}_s{seed}.npz") if cache else ""
+    skp = os.path.join(cache, f"bench_sk_{p.name}_s{seed}.npz") if cache else ""
     if skp and os.path.exists(ckp) and os.path.exists(skp):
         try:
             ck, sk = K.load_client_key(ckp), K.load_server_key(skp)
@@ -109,7 +111,7 @@ def _keys(p, device):
             return ck, sk
         except ValueError as e:  # the CRT prime set changed: regenerate
             _log(f"key cache invalid ({e})")
-    ck = lwe.keygen(p, seed=SEED)
+    ck = lwe.keygen(p, seed=seed)
     sk = gen_server_key(ck, device)
     if skp:
         os.makedirs(cache, exist_ok=True)

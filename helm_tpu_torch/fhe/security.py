@@ -40,9 +40,10 @@ Caveats (documented, deliberate):
   lattice-estimator runs to within ~2-4 bits in this (q = 2^32,
   n = 512-2048) regime.
 
-The port's own copy of `helm_tpu/fhe/security.py`, trimmed to what the
-port calls, so that helm_tpu_torch imports nothing of the JAX package;
-the tests/test_torch_*.py files hold it against the original.
+The port's own copy of `helm_tpu/fhe/security.py`, so that
+helm_tpu_torch imports nothing of the JAX package; the tests/test_torch_*.py
+files hold it against the original. `python -m helm_tpu_torch.fhe.security`
+prints the core-SVP table of every production set, as the original does.
 """
 
 from __future__ import annotations
@@ -129,3 +130,24 @@ def security_bits(p: TfheParams) -> float:
     """Headline classical security = min over both keys."""
     est = estimate_params(p)
     return min(est["lwe"].classical_bits, est["glwe"].classical_bits)
+
+
+def report(params_list) -> str:
+    lines = [
+        f"{'set':<18} {'key':<5} {'n':>5} {'sigma':>8} {'beta':>6} "
+        f"{'m':>5} {'classical':>9} {'quantum':>8}"
+    ]
+    for p in params_list:
+        for key, e in estimate_params(p).items():
+            lines.append(
+                f"{p.name:<18} {key:<5} {e.n:>5} {e.sigma:>8.3g} {e.beta:>6.0f} "
+                f"{e.m:>5} {e.classical_bits:>9.1f} {e.quantum_bits:>8.1f}"
+            )
+    return "\n".join(lines)
+
+
+if __name__ == "__main__":
+    from ..params import ALL_PARAMS
+
+    prod = [p for p in ALL_PARAMS.values() if not p.name.startswith("test_")]
+    print(report(prod))

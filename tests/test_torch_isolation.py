@@ -296,3 +296,45 @@ def test_refbound_equals_the_reference(name):
     for kw in ({}, {"cores": 7, "cycles": 3}):
         assert refbound.bounds_for_netlist(path, **kw) == ref_refbound.bounds_for_netlist(path, **kw)
     assert refbound.reference_bounds(mine, 16, 0.02, 2) == ref_refbound.reference_bounds(ref, 16, 0.02, 2)
+
+
+@pytest.mark.parametrize("module,argv,env,last", [
+    ("helm_tpu_torch.tools.expand8_probe", ["--device", "cpu"], {}, "expand8 [6144,8] -> [6144,128] on cpu"),
+    ("helm_tpu_torch.tools.splat_repro", ["--device", "cpu"], {"STEPS": "2"}, "splat vs scalar: "),
+    ("helm_tpu_torch.tools.liveset_harness", ["--device", "cpu"], {"STEPS": "2", "RS": "1", "AS": "1"},
+     "R= 1 A= 1 splat"),
+    ("helm_tpu_torch.tools.ptw_probe", ["--device", "cpu", "A", "C"], {"STEPS": "1"}, "{'A': "),
+    ("helm_tpu_torch.tools.family_bench", ["--device", "cpu"],
+     {"PSET": "TEST_PARAMS", "NETLIST": "benchmarks/netlists/2-bit-adder.v"}, 'RESULT {"family": "2-bit-adder"'),
+    ("helm_tpu_torch.tools.chi2_bench", ["--device", "cpu"], {"PARAMS": "TEST_PARAMS_ARITH_MB", "WIDTH": "u8"},
+     'RESULT {"family": "chi_squared_arith"'),
+    ("helm_tpu_torch.tools.noise_validate", ["--device", "cpu"],
+     {"PSET": "TEST_NOISY_GATES_MB", "SAMPLES": "32", "G": "32"}, 'RESULT {"params": "test_noisy_gates_mb"'),
+    ("helm_tpu_torch.fhe.security", [], {}, "arith_128_mb2      glwe"),
+], ids=["expand8_probe", "splat_repro", "liveset_harness", "ptw_probe", "family_bench", "chi2_bench",
+        "noise_validate", "security"])
+def test_tools_in_a_fresh_interpreter_import_neither(tmp_path, module, argv, env, last):
+    """The ported tools (`python -m <module> <argv>` with their env knobs,
+    as runpy runs -m) in a fresh interpreter on the CPU: exit code 0, the
+    start of their last line, and neither JAX nor helm_tpu in
+    sys.modules. The noise tool's key cache goes to a temporary directory."""
+    code = textwrap.dedent(
+        f"""
+        import runpy, sys
+        sys.argv = [{module!r}, *{argv!r}]
+        try:
+            runpy.run_module({module!r}, run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            assert e.code in (0, None), e.code
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+        assert not leaked, leaked
+        print("ISOLATED_OK")
+        """
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, **env, "OMP_NUM_THREADS": "1", "BENCH_KEY_CACHE": str(tmp_path)},
+    )
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    lines = res.stdout.strip().splitlines()
+    assert lines[-1] == "ISOLATED_OK" and lines[-2].startswith(last), lines[-3:]
