@@ -64,16 +64,26 @@ Phases, in order (each prints one line, with its seconds):
           card, tolerance 0, K7 at [6144, 8] -> [6144, 128] (and against
           np.tile), K8's four variants at 8 steps and splat at 512, K9's 60
           builds (R 1-8 x A 1-16 x splat, red, two) at 4 steps and R=8
-          A=12 at 256, K10's five patterns at 3 steps and C at 64; the
-          timed shapes' kernel, plain and library times and bounds go into
-          the kernels line (library: x.repeat(1, 16) for K7; for K10's C
-          the bf16 torch.matmul of one (unit, group)'s six products, times
-          the run's 1536 of them; none for K8 and K9). Then, with the four
-          probes' counts set to 0, the probe tools (helm_tpu_torch/tools/
-          expand8_probe, splat_repro, liveset_harness, ptw_probe) at the
-          reference's defaults: their rates, registers a thread and spill
-          bytes (cudaFuncGetAttributes of each build); their launches are
-          the phase's
+          A=12 at 256, K10's five patterns at 3 steps and C at 64 (and C's
+          limb buffer, after a launch of 0 steps, byte for byte against
+          ops/probes.py's model of its swizzled layout); the timed shapes'
+          kernel, plain and library times and bounds go into the kernels
+          line (library: x.repeat(1, 16) for K7; for K10's C the bf16
+          torch.matmul of a step's stacked (unit, group) limb matrices by
+          its feedback, 64 of them; none for K8 and K9). K7's time and its
+          library's are device times (tools/probe_timing.py graph_ms: 30
+          calls in a CUDA graph, replayed), printed beside their eager
+          times; C's library is timed the same way (a graph of its 64
+          calls) beside the eager reading. C's clocks a block a step per
+          phase (feedback, products, epilogue, barrier, and the concurrent
+          build: ops/probes.py ptw_c_phases) and registers and spills are
+          printed. Then, with
+          the four probes' counts set to 0, the probe tools
+          (helm_tpu_torch/tools/expand8_probe, splat_repro,
+          liveset_harness, ptw_probe) at the reference's defaults: their
+          rates (K7 and K10 also as graph replays), registers a thread and
+          spill bytes (cudaFuncGetAttributes of each build); their
+          launches are the phase's
   batch   main path: G=1024 AND gates at GATES_128_K3 (K1, keys seed 2024)
           through mb_pbs.bootstrap, decrypted against the truth table;
           bootstraps/s
@@ -1566,7 +1576,7 @@ class Smoke:
 
         from helm_tpu_torch.ops import probes
         from helm_tpu_torch.tools import expand8_probe, liveset_harness, ptw_probe, splat_repro
-        from helm_tpu_torch.tools.probe_timing import bound_s
+        from helm_tpu_torch.tools.probe_timing import bound_s, graph_ms
 
         dev = torch.device(self.device)
         notes = []
@@ -1584,16 +1594,25 @@ class Smoke:
             notes.append(f"{name} {ms:.6f} ms (plain {plain_ms:.6f}, bound {b * 1e3:.6f} {by}"
                          + (f", library {library_ms:.6f}" if library_ms is not None else "") + ")")
 
-        # K7 at the reference's shape; library: one repeat of x
+        # K7 at the reference's shape; library: one repeat of x. Both are a
+        # few microseconds: the kernels line takes their device times (a
+        # graph of 30 calls, replayed; K7, repeat, repeat, K7), the eager
+        # times are printed beside them
         x, e8 = expand8_probe.inputs()
         xd = torch.from_numpy(x.astype(np.int32)).to(dev)
         ed = torch.from_numpy(np.ascontiguousarray(e8[:, : expand8_probe.L])).to(dev)
-        ms, got = _time_ms(lambda: probes.expand8(xd, ed), reps=30)
+        eager_ms, got = _time_ms(lambda: probes.expand8(xd, ed), reps=30)
         plain_ms, ref = _time_ms(lambda: probes.expand8_plain(xd, ed), reps=3)
         equal("K7", got, ref)
         assert np.array_equal(got.cpu().numpy().astype(np.uint32), np.tile(x, (1, 16))), "K7 != np.tile(x, (1, 16))"
-        lib_ms, _ = _time_ms(lambda: xd.repeat(1, 16), reps=30)
+        lib_eager_ms, _ = _time_ms(lambda: xd.repeat(1, 16), reps=30)
+        k7 = [graph_ms(lambda: probes.expand8(xd, ed), 30, 20)]
+        lib = [graph_ms(lambda: xd.repeat(1, 16), 30, 20) for _ in range(2)]
+        k7.append(graph_ms(lambda: probes.expand8(xd, ed), 30, 20))
+        ms, lib_ms = sum(k7) / 2, sum(lib) / 2
         record("expand8", ms, plain_ms, *expand8_probe.work(), library_ms=lib_ms)
+        notes.append(f"K7 graph replays {k7[0]:.6f} / {k7[1]:.6f} ms, x.repeat(1, 16) {lib[0]:.6f} / "
+                     f"{lib[1]:.6f} ms; eager {eager_ms:.6f} and {lib_eager_ms:.6f} ms")
 
         # K8: every variant at 8 steps; timed: splat at the reference's 512
         cols8, rows = (torch.from_numpy(a).to(dev) for a in splat_repro.inputs(8))
@@ -1626,18 +1645,34 @@ class Smoke:
         # limb matrices [3 x 64, 512] by the two feedback limbs [512, 2 x
         # 512]; a step's units x groups of them share the feedback, so a
         # step is one torch.matmul of the stacked limb matrices [units x
-        # groups x 3 x 64, 512] by [512, 2 x 512], and the run 64 of them
+        # groups x 3 x 64, 512] by [512, 2 x 512], and the run 64 of them,
+        # timed as device time (a graph of the 64 calls, replayed) and
+        # eager, around C (library, C, C, library)
         data = {k: [torch.from_numpy(a).to(dev) for a in v] for k, v in ptw_probe.inputs(probes.PTW_PATTERNS).items()}
         for pat in probes.PTW_PATTERNS:
             equal(f"K10 {pat} (3 steps)", probes.ptw(pat, data[pat], 3), probes.ptw_plain(pat, data[pat], 3))
-        ms, got = _time_ms(lambda: probes.ptw("C", data["C"], 64), reps=3)
-        plain_ms, ref = _time_ms(lambda: probes.ptw_plain("C", data["C"], 64), warm=False)
-        equal("K10 C (64 steps)", got, ref)
+        _, scratch, _ = probes.ptw_c(data["C"], 0)
+        image = probes.ptw_c_limb_image(probes.ptw_c_limbs(*data["C"]))
+        assert torch.equal(scratch[: probes.PTW_C_LIMB_BYTES].cpu(), image), "K10 C: limb buffer != the host's layout"
         a = torch.randint(-128, 129, (2 * probes.NVC * 3 * 64, 512), device=dev).to(torch.bfloat16)
         b = torch.randint(-128, 129, (512, 2 * 512), device=dev).to(torch.bfloat16)
-        lib_ms, _ = _time_ms(lambda: torch.matmul(a, b), reps=64)
+        lib = [graph_ms(lambda: torch.matmul(a, b), 64, 10) * 64]
+        c_ms = [_time_ms(lambda: probes.ptw("C", data["C"], 64), reps=3) for _ in range(2)]
+        lib.append(graph_ms(lambda: torch.matmul(a, b), 64, 10) * 64)
+        lib_eager_ms, _ = _time_ms(lambda: torch.matmul(a, b), reps=64)
+        ms, got = sum(m for m, _ in c_ms) / 2, c_ms[-1][1]
+        plain_ms, ref = _time_ms(lambda: probes.ptw_plain("C", data["C"], 64), warm=False)
+        equal("K10 C (64 steps)", got, ref)
         fp32, bf16, nbytes = ptw_probe.work("C", 64, 2)
-        record("ptw", ms, plain_ms, fp32, nbytes, library_ms=lib_ms * 64, bf16=bf16)
+        record("ptw", ms, plain_ms, fp32, nbytes, library_ms=sum(lib) / 2, bf16=bf16)
+        phases = probes.ptw_c_phases(data["C"], 64)
+        regs, spill = probes.ptw_resources("C")
+        notes.append(
+            f"K10 C {c_ms[0][0]:.6f} / {c_ms[1][0]:.6f} ms, library graph replays {lib[0]:.6f} / {lib[1]:.6f} ms "
+            f"(eager {lib_eager_ms * 64:.6f}); C's clocks a block a step: "
+            + ", ".join(f"{k} {v:.0f} ({phases['shares'][k]:.1%})" for k, v in phases["clocks"].items())
+            + f" of a {phases['step']:.0f}-clock step over {phases['blocks']} blocks (build concurrent); "
+            f"regs {regs}, spill {spill} B; limb buffer == the host's layout")
         checks = ("K7; K8 x 4 variants; K9 x 60 builds; K10 x 5 patterns: kernel == plain (tolerance 0)")
 
         # the probe tools, as a user runs them: this phase's launches

@@ -79,11 +79,16 @@ def _cuda(name: str, *tensors: torch.Tensor) -> bool:
 
 def _launch(name: str, symbol: str, argtypes: list, args: list, device) -> None:
     """Call the C entry `symbol` of csrc/<name>.cu on `device`'s current
-    stream and raise on its cudaError_t."""
-    if symbol not in _ENTRIES:
-        _ENTRIES[symbol] = build.entry(name, argtypes + [_P], symbol)
-    with torch.cuda.device(device):
-        rc = _ENTRIES[symbol](*args, torch.cuda.current_stream(device).cuda_stream)
+    stream and raise on its cudaError_t. The card is made current only
+    when it is not already (a kernel runs on its inputs' card)."""
+    fn = _ENTRIES.get(symbol)
+    if fn is None:
+        fn = _ENTRIES[symbol] = build.entry(name, argtypes + [_P], symbol)
+    if device.index is None or device.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     build.check(rc, symbol)
 
 
@@ -119,8 +124,9 @@ def expand8_plain(x: torch.Tensor, e8: torch.Tensor) -> torch.Tensor:
 
 
 def expand8(x: torch.Tensor, e8: torch.Tensor) -> torch.Tensor:
-    """K7 (csrc/probe_expand8.cu): `expand8_plain`'s function, one thread
-    an output word. x int32 [R, 8], e8 f32 [8, L]."""
+    """K7 (csrc/probe_expand8.cu): `expand8_plain`'s function, a warp a
+    row of 128 columns, 4 words a thread in one 16-byte store
+    (`expand8_plan`). x int32 [R, 8], e8 f32 [8, L]."""
     if x.dim() != 2 or x.shape[1] != 8 or e8.dim() != 2 or e8.shape[0] != 8:
         raise ValueError(f"expand8: x [R, 8] and e8 [8, L], got {tuple(x.shape)} and {tuple(e8.shape)}")
     if not _cuda("expand8", x, e8):
@@ -137,6 +143,35 @@ def expand8(x: torch.Tensor, e8: torch.Tensor) -> torch.Tensor:
 
 
 expand8.launches = 0
+
+#: K7's geometry (csrc/probe_expand8.cu): warps a block, rows a warp,
+#: columns a warp (4 a lane)
+EXPAND8_WPB, EXPAND8_RPW, EXPAND8_TILE = 4, 2, 128
+
+
+def expand8_plan(R: int, L: int) -> tuple[tuple[int, int], list]:
+    """K7's launch, modelled: (grid (x, y), and for every (block x, block
+    y, warp, lane) that writes, its (rows, first column, columns, 16-byte
+    store)). A warp takes EXPAND8_RPW consecutive rows, a lane 4
+    consecutive columns of its warp's tile of 128; the last tile's lanes
+    past L write nothing or fewer words, and a row that is not 16-byte
+    aligned (L % 4) is written word by word."""
+    rows_a_block = EXPAND8_WPB * EXPAND8_RPW
+    grid = (-(-R // rows_a_block), -(-L // EXPAND8_TILE))
+    cells = []
+    for bx in range(grid[0]):
+        for by in range(grid[1]):
+            for warp in range(EXPAND8_WPB):
+                r0 = (bx * EXPAND8_WPB + warp) * EXPAND8_RPW
+                rows = range(r0, min(R, r0 + EXPAND8_RPW))
+                for lane in range(32):
+                    l0 = by * EXPAND8_TILE + 4 * lane
+                    if l0 >= L or not rows:
+                        continue
+                    nl = min(4, L - l0)
+                    cells.append((bx, by, warp, lane, rows, l0, nl, nl == 4 and L % 4 == 0))
+    return grid, cells
+
 
 
 # -- K8 and K9: the column splat and the live set ---------------------------
@@ -296,6 +331,19 @@ def _ptw_elementwise(pattern: str, slab: torch.Tensor, steps: int, units: int, G
     return acc
 
 
+def ptw_c_limbs(w0, w1, bcol) -> torch.Tensor:
+    """kernel_C's limb matrices of W diag(b) for every term group: bf16
+    [NVC, 3, ROWS*N2, N2], limb 0 s00, 1 m1 = s01 + s10, 2 s11, from w0,
+    w1 [ROWS*N2, N2] and group vc's column bcol[:, vc]."""
+    out = []
+    for vc in range(NVC):
+        b = bcol[:, vc : vc + 1]
+        s00, s01 = _split256(_redfbt(w0 * b))
+        s10, s11 = _split256(_redfbt(w1 * b))
+        out.append(torch.stack([s00, s01 + s10, s11]))
+    return torch.stack(out).to(torch.bfloat16)
+
+
 def _ptw_c(w0, w1, bcol, steps: int, units: int, G: int) -> torch.Tensor:
     """kernel_C: per (unit, term group) the limb matrices of W diag(b)
     built from w0, w1 [ROWS*N2, N2] and bcol [ROWS*N2, NVC], and the six
@@ -315,13 +363,10 @@ def _ptw_c(w0, w1, bcol, steps: int, units: int, G: int) -> torch.Tensor:
         x0, x1 = _split256(x)
         x0, x1 = x0.to(bf), x1.to(bf)
         total = None
+        limbs = ptw_c_limbs(w0, w1, bcol)  # anew every step, as the reference
         for _u in range(units):
             for vc in range(NVC):
-                b = bcol[:, vc : vc + 1]
-                s00, s01 = _split256(_redfbt(w0 * b))
-                s10, s11 = _split256(_redfbt(w1 * b))
-                m1 = (s01 + s10).to(bf)
-                s00, s11 = s00.to(bf), s11.to(bf)
+                s00, m1, s11 = limbs[vc]
                 lo = mm(s00, x0)
                 mid = mm(m1, x0) + mm(s00, x1)
                 hi2 = mm(m1, x1) + mm(s11, x0)
@@ -346,10 +391,8 @@ def ptw_plain(pattern: str, inputs, steps: int, units: int = 2, G: int = 512) ->
 
 def ptw(pattern: str, inputs, steps: int, units: int = 2, G: int = 512) -> torch.Tensor:
     """K10 (csrc/probe_ptw.cu): `ptw_plain`'s function. A, NOB, B, B2:
-    one thread an output element, the steps a loop inside it; C: a block
-    per 8 columns of G, the limb matrices built in the registers of the
-    bf16 mma.sync tiles and contracted on the tensor cores with f32
-    accumulation."""
+    one thread an output element, the steps a loop inside it; C: one
+    persistent cooperative launch (`ptw_c`)."""
     if pattern not in PTW_PATTERNS:
         raise ValueError(f"ptw: pattern {pattern!r}, one of {PTW_PATTERNS}")
     inputs = tuple(inputs)
@@ -358,32 +401,145 @@ def ptw(pattern: str, inputs, steps: int, units: int = 2, G: int = 512) -> torch
     if any(t.dtype != torch.float32 for t in inputs):
         raise TypeError("ptw: float32 inputs")
     inputs = tuple(t.contiguous() for t in inputs)
-    dev = inputs[0].device
     if pattern == "C":
-        w0, w1, bcol = inputs
-        rn, n2 = w0.shape
-        if (rn, n2) != (ROWS * N2, N2) or w1.shape != w0.shape or bcol.shape != (rn, NVC) or G % 8:
-            raise ValueError(f"ptw C: w0, w1 [{ROWS * N2}, {N2}], bcol [{ROWS * N2}, {NVC}], G a multiple "
-                             f"of 8; got {tuple(w0.shape)}, {tuple(w1.shape)}, {tuple(bcol.shape)}, G={G}")
-        out = torch.empty((rn, G), dtype=torch.float32, device=dev)
-        ptrs = [w0.data_ptr(), w1.data_ptr(), bcol.data_ptr()]
-        dims = (rn, G)
-    else:
-        (slab,) = inputs
-        if slab.dim() != 2 or slab.shape[0 if pattern in ("B", "B2") else 1] != NVC * ROWS:
-            raise ValueError(f"ptw {pattern}: slab {tuple(slab.shape)}")
-        dims = (slab.shape[0], G) if pattern in ("A", "NOB") else (G, slab.shape[1])
-        if pattern in ("B", "B2") and 128 % dims[1]:
-            raise ValueError(f"ptw {pattern}: L={dims[1]} must divide 128")
-        out = torch.empty(dims, dtype=torch.float32, device=dev)
-        ptrs = [slab.data_ptr(), 0, 0]
-    _launch("probe_ptw", "helm_probe_ptw", [_I, _P, _P, _P, _P, _I, _I, _I, _I],
-            [_PATTERN_ID[pattern], *ptrs, out.data_ptr(), *dims, steps, units], dev)
+        return ptw_c(inputs, steps, units, G)[0]
+    (slab,) = inputs
+    if slab.dim() != 2 or slab.shape[0 if pattern in ("B", "B2") else 1] != NVC * ROWS:
+        raise ValueError(f"ptw {pattern}: slab {tuple(slab.shape)}")
+    dims = (slab.shape[0], G) if pattern in ("A", "NOB") else (G, slab.shape[1])
+    if pattern in ("B", "B2") and 128 % dims[1]:
+        raise ValueError(f"ptw {pattern}: L={dims[1]} must divide 128")
+    out = torch.empty(dims, dtype=torch.float32, device=slab.device)
+    _launch("probe_ptw", "helm_probe_ptw", [_I, _P, _P, _I, _I, _I, _I],
+            [_PATTERN_ID[pattern], slab.data_ptr(), out.data_ptr(), *dims, steps, units], slab.device)
     ptw.launches += 1
     return out
 
 
 ptw.launches = 0
+
+# -- K10's C: the host's view of csrc/probe_ptw.cu ptw_c -----------------------
+
+#: columns of gates a work item, limb matrices (s00, m1, s11), contraction
+#: rows a chunk (a 128-byte row of bf16), and the phases its clocks split:
+#: thread 0's four, which make up a step, and the build warps' (concurrent)
+PTW_C_COLS, PTW_C_LIMBS, PTW_C_KC = 48, 3, 64
+PTW_C_PHASES = ("feedback", "products", "epilogue", "barrier", "build")
+#: bytes of a limb matrix's chunk [N2 x KC] bf16, and of a step's limb matrices
+PTW_C_ATILE = N2 * PTW_C_KC * 2
+PTW_C_LIMB_BYTES = NVC * PTW_C_LIMBS * (ROWS * N2 // PTW_C_KC) * PTW_C_ATILE
+#: bytes of the steps' barrier counter, after the sums
+PTW_C_BAR_BYTES = 256
+
+
+def ptw_c_items(G: int, units: int) -> list[tuple[int, int, int, int, int, int]]:
+    """C's work items in the kernel's order: (group, column block, pass,
+    first column, columns, units). A pass takes two units (the last one of
+    an odd count, one); the last column block of a G that PTW_C_COLS does
+    not divide is narrower, its missing columns masked."""
+    ncb, npass = -(-G // PTW_C_COLS), -(-units // 2)
+    items = []
+    for i in range(NVC * ncb * npass):
+        p, cb, vc = i % npass, i // npass % ncb, i // npass // ncb
+        col0 = cb * PTW_C_COLS
+        items.append((vc, cb, p, col0, min(PTW_C_COLS, G - col0), min(2, units - 2 * p)))
+    return items
+
+
+def ptw_c_plan(G: int, units: int, blocks: int) -> list[list[tuple]]:
+    """Each block's items, in its order: block b takes items b, b +
+    blocks, ... of `ptw_c_items`."""
+    items = ptw_c_items(G, units)
+    return [items[b::blocks] for b in range(blocks)]
+
+
+def ptw_c_scratch_bytes(G: int) -> tuple[int, int, int]:
+    """(bytes of the limb buffers: two steps' limb matrices, the one a step
+    reads and the next one's; bytes of the sums: three [N2, G] f32 planes,
+    the step's, the last step's and the one zeroed ahead; bytes of the
+    steps' barrier counter)."""
+    return 2 * PTW_C_LIMB_BYTES, 3 * N2 * G * 4, PTW_C_BAR_BYTES
+
+
+def ptw_c_limb_offsets() -> torch.Tensor:
+    """Byte offset in a step's limb buffer of word (group, limb, contraction
+    row k, frequency m): int64 [NVC, 3, ROWS*N2, N2]. Chunk k // 64 of a
+    limb matrix is a tile of 64 rows (frequencies) of 128 bytes (its 64
+    contraction rows), wgmma's K-major layout with the 128-byte swizzle:
+    16-byte chunk q of row m sits at chunk q ^ (m % 8)."""
+    vc = torch.arange(NVC).view(-1, 1, 1, 1)
+    limb = torch.arange(PTW_C_LIMBS).view(1, -1, 1, 1)
+    k = torch.arange(ROWS * N2).view(1, 1, -1, 1)
+    m = torch.arange(N2).view(1, 1, 1, -1)
+    kc, kk = k // PTW_C_KC, k % PTW_C_KC
+    tile = ((vc * PTW_C_LIMBS + limb) * (ROWS * N2 // PTW_C_KC) + kc) * PTW_C_ATILE
+    return tile + m * 128 + (((kk // 8) ^ (m % 8)) * 16) + (kk % 8) * 2
+
+
+def ptw_c_limb_image(limbs: torch.Tensor) -> torch.Tensor:
+    """The bytes of a step's limb buffer as the kernel writes them, from
+    `ptw_c_limbs`: uint8 [PTW_C_LIMB_BYTES]."""
+    words = torch.zeros(PTW_C_LIMB_BYTES // 2, dtype=torch.int16)
+    words[ptw_c_limb_offsets().reshape(-1) // 2] = limbs.cpu().contiguous().view(torch.int16).reshape(-1)
+    return words.view(torch.uint8)
+
+
+def ptw_c_grid(device) -> int:
+    """Blocks of C's cooperative launch on `device` (a block per SM), after
+    checking that the kernel's constants are the host's."""
+    blocks, cols, limb_bytes, phases = (ctypes.c_int(0) for _ in range(4))
+    fn = _ENTRIES.get("helm_probe_ptw_c_grid")
+    if fn is None:
+        fn = _ENTRIES["helm_probe_ptw_c_grid"] = build.entry(
+            "probe_ptw", [ctypes.POINTER(_I)] * 4, "helm_probe_ptw_c_grid")
+    with torch.cuda.device(device):
+        build.check(fn(*(ctypes.byref(v) for v in (blocks, cols, limb_bytes, phases))), "helm_probe_ptw_c_grid")
+    got = (cols.value, limb_bytes.value, phases.value)
+    if got != (PTW_C_COLS, PTW_C_LIMB_BYTES, len(PTW_C_PHASES)):
+        raise RuntimeError(f"csrc/probe_ptw.cu's C constants {got} are not the host's "
+                           f"{(PTW_C_COLS, PTW_C_LIMB_BYTES, len(PTW_C_PHASES))}")
+    return blocks.value
+
+
+def ptw_c(inputs, steps: int, units: int = 2, G: int = 512, clocks: bool = False):
+    """K10's C on the card, one cooperative launch: (out [ROWS*N2, G], the
+    scratch it used (two limb buffers, the three sums, the barrier), the clock64
+    sums of each block's thread 0 per phase [blocks, PTW_C_PHASES] or
+    None). inputs: w0, w1 [ROWS*N2, N2], bcol [ROWS*N2, NVC] float32 on
+    one card."""
+    w0, w1, bcol = (t.contiguous() for t in inputs)
+    rn, n2 = w0.shape
+    if (rn, n2) != (ROWS * N2, N2) or w1.shape != w0.shape or bcol.shape != (rn, NVC) or G % 8 or G <= 0:
+        raise ValueError(f"ptw C: w0, w1 [{ROWS * N2}, {N2}], bcol [{ROWS * N2}, {NVC}], G a multiple "
+                         f"of 8; got {tuple(w0.shape)}, {tuple(w1.shape)}, {tuple(bcol.shape)}, G={G}")
+    dev = w0.device
+    out = torch.empty((rn, G), dtype=torch.float32, device=dev)
+    scratch = torch.empty(sum(ptw_c_scratch_bytes(G)), dtype=torch.uint8, device=dev)
+    clk = None
+    if clocks:
+        clk = torch.zeros((ptw_c_grid(dev), len(PTW_C_PHASES)), dtype=torch.int64, device=dev)
+    _launch("probe_ptw", "helm_probe_ptw_c", [_P, _P, _P, _P, _P, _P, _I, _I, _I],
+            [w0.data_ptr(), w1.data_ptr(), bcol.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+             0 if clk is None else clk.data_ptr(), G, steps, units], dev)
+    ptw.launches += 1
+    return out, scratch, clk
+
+
+def ptw_c_phases(inputs, steps: int, units: int = 2, G: int = 512) -> dict:
+    """One instrumented run of C: clock64 cycles a block a step by phase,
+    averaged over the blocks. Thread 0's phases make up the step: feedback
+    (X written to shared memory), products (the wgmma loop), epilogue (the
+    exchange, the recombination, the bulk adds issued) and barrier (their
+    completion and the wait at the grid barrier); build is a build warp's busy
+    time (the next step's limb matrices and a sum plane zeroed), concurrent
+    with them. shares: thread 0's phases over the step, and build over the
+    step."""
+    _, _, clk = ptw_c(inputs, steps, units, G, clocks=True)
+    per = (clk.double().sum(0) / clk.shape[0] / max(steps, 1)).cpu()
+    clocks = {name: float(per[i]) for i, name in enumerate(PTW_C_PHASES)}
+    step = sum(clocks[name] for name in PTW_C_PHASES[:-1])
+    return {"clocks": clocks, "step": step, "shares": {k: v / step for k, v in clocks.items()},
+            "blocks": clk.shape[0]}
 
 
 def ptw_resources(pattern: str) -> tuple[int, int]:

@@ -1,11 +1,16 @@
 """What the four probe tools (expand8_probe, splat_repro, liveset_harness,
-ptw_probe) share: the device from `--device`, the timing of a call, and
-the Hopper readings of a kernel build.
+ptw_probe) and chip_smoke.py's phase `probes` share: the device from
+`--device`, the timing of a call, and the Hopper readings of a kernel
+build.
 
-On the card a call is timed with CUDA events around `reps` calls after a
-first, untimed one (which builds and loads the kernel); on the CPU with
-the host clock. A CPU time is the plain version's on the host and never
-a device time: the tools print it with the device's name.
+On the card a call is timed two ways. `timed`: CUDA events around `reps`
+eager calls after a first, untimed one (which builds and loads the
+kernel); for a call of a few microseconds that reads the host's enqueue
+rate, not the device. `graph_ms`: the device time, `calls` calls captured
+into one CUDA graph and the graph replayed between events. On the CPU
+`timed` uses the host clock and `graph_ms` is not measured. A CPU time is
+the plain version's on the host and never a device time: the tools print
+it with the device's name.
 """
 
 from __future__ import annotations
@@ -63,6 +68,35 @@ def timed(fn, reps: int, device) -> tuple[float, float, object]:
     for _ in range(reps):
         out = fn()
     return first, (time.perf_counter() - t0) / max(reps, 1), out
+
+
+def graph_ms(fn, calls: int, replays: int, counter=None) -> float:
+    """Device milliseconds a call on the current card: `calls` calls of
+    `fn` captured into one CUDA graph (after an eager warm-up call), the
+    graph replayed once untimed and then `replays` times between events.
+    A kernel wrapper launches on the current stream, the capture's. When
+    `counter` (a wrapper with a `launches` count) is given, the capture's
+    counts are taken back and each replay adds its `calls` launches, so
+    the count stays the device's launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = counter.launches if counter is not None else 0
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    if counter is not None:
+        counter.launches = before
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    if counter is not None:
+        counter.launches += calls * (replays + 1)
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def bound_s(fp32_ops: float = 0.0, bf16_flops: float = 0.0, nbytes: float = 0.0) -> tuple[float, str]:

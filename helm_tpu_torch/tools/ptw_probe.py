@@ -9,17 +9,23 @@ and prints the reference's ns/unit per pattern:
   NOB  A without the BSK words (calibrates their share)
   B    transposed: gates in rows, frequencies in columns (L = 64)
   B2   transposed at L = 128 (two tiles; counted as 2 units' work)
-  C    the term groups as a bf16 contraction on the tensor cores
+  C    the term groups as a bf16 contraction on the tensor cores: one
+       cooperative launch that builds each step's limb matrices once for
+       the card and takes the six products of every (unit, group) on
+       wgmma
 
-and, per pattern, the bound and the build's registers a thread and spill
-bytes.
+and, per pattern, the time a call eager (events around REPS calls) and
+as device time (a CUDA graph of GRAPH_CALLS calls, replayed), the bound
+and the build's registers a thread and spill bytes.
 
     python -m helm_tpu_torch.tools.ptw_probe [A NOB B B2 C]              # the card (K10)
     python -m helm_tpu_torch.tools.ptw_probe --device cpu A NOB          # the plain version
 
 Env: STEPS (default 64, the reference's; 2 on the CPU). Each pattern
 is timed over REPS = 20 calls after a first one, at UNITS = 2, as the
-reference's.
+reference's; on the card also GRAPH_CALLS = 5 calls in a graph, replayed
+GRAPH_REPLAYS = 4 times (a CPU run prints the graph time as not
+measured).
 """
 
 from __future__ import annotations
@@ -31,13 +37,13 @@ import numpy as np
 import torch
 
 from ..ops import probes
-from .probe_timing import bound_s, device_arg, device_name, notes, timed
+from .probe_timing import bound_s, device_arg, device_name, graph_ms, notes, timed
 
 N2, G, P = probes.N2, 512, int(probes.PTW_P)
 ROWS, NVC = probes.ROWS, probes.NVC
 LABELS = {
     "A": "A  (current lane-splat)", "NOB": "NOB (no BSK loads)", "B": "B  (transposed, L=64)",
-    "B2": "B2 (transposed, L=128)", "C": "C  (tensor-core fold, on-the-fly)",
+    "B2": "B2 (transposed, L=128)", "C": "C  (wgmma fold, built once a step)",
 }
 #: FP32 multiplies and adds an element (A, NOB, B) per unit: 8 row limb
 #: pairs (a reduction, an add and a split each: 9), then per term group
@@ -46,8 +52,9 @@ LABELS = {
 UNIT_OPS = ROWS * 9 + NVC * (2 * ROWS + 2 * (ROWS - 1) + 3 * 4 + 3)
 STEP_OPS = 9
 #: timed calls a pattern, and (unit, term group) passes a step: the
-#: reference's constants
+#: reference's constants; calls in a graph and its replays (the card)
 REPS, UNITS = 20, 2
+GRAPH_CALLS, GRAPH_REPLAYS = 5, 4
 
 
 def inputs(which) -> dict:
@@ -89,17 +96,25 @@ def run(device, which, steps: int, reps: int = REPS, units: int = UNITS) -> dict
     print(f"on {device_name(device)}: steps={steps} units={units} reps={reps}", flush=True)
     for pat in which:
         ins = [torch.from_numpy(a).to(device) for a in data[pat]]
-        first, dt, out = timed(lambda: probes.ptw(pat, ins, steps, units, G), reps, device)
+
+        def call():
+            return probes.ptw(pat, ins, steps, units, G)
+
+        first, dt, out = timed(call, reps, device)
+        graph_s = None
+        if device.type == "cuda":
+            graph_s = graph_ms(call, GRAPH_CALLS, GRAPH_REPLAYS, probes.ptw) / 1e3
         assert bool(torch.isfinite(out).all()), f"{pat}: non-finite output"
         units_of = 2.0 if pat == "B2" else 1.0
         ns_unit = dt / steps / units / units_of * 1e9
         fp32, bf16, nbytes = work(pat, steps, units)
         bound, by = bound_s(fp32, bf16, nbytes)
-        res[pat] = {"ns_unit": ns_unit, "s": dt, "bound_s": bound, "bound_by": by}
+        res[pat] = {"ns_unit": ns_unit, "s": dt, "graph_s": graph_s, "bound_s": bound, "bound_by": by}
+        graph = "not measured (cpu)" if graph_s is None else f"{graph_s * 1e3:.6f} ms"
         print(f"{LABELS[pat]}: first call {first:.1f}s", flush=True)
         print(
-            f"{LABELS[pat]}: {ns_unit:,.0f} ns/unit; {dt * 1e3:.6f} ms a call; "
-            f"{notes(device, bound, by, lambda: probes.ptw_resources(pat))}",
+            f"{LABELS[pat]}: {ns_unit:,.0f} ns/unit; {dt * 1e3:.6f} ms a call eager, "
+            f"graph replay {graph}; {notes(device, bound, by, lambda: probes.ptw_resources(pat))}",
             flush=True,
         )
     print({k: round(v["ns_unit"]) for k, v in res.items()}, flush=True)

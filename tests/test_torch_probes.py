@@ -197,3 +197,124 @@ def test_probe_tools_on_the_cpu(capsys):
     assert "not measured (cpu)" in out and "H100 bound" not in out
     with pytest.raises(SystemExit, match="unknown patterns"):
         ptw_probe.main(["--device", "cpu", "Z"], {})
+
+
+# -- K10's C on wgmma: the host's view of the kernel (csrc/probe_ptw.cu ptw_c) --
+
+
+@pytest.mark.parametrize("G,units,blocks", [(512, 2, 132), (8, 2, 132), (520, 3, 7), (1024, 1, 132)])
+def test_ptw_c_plan_takes_each_item_once(G, units, blocks):
+    """Every (group, column block, pass) is one item of exactly one block;
+    the column blocks tile [0, G), the last one narrower and its missing
+    columns masked; the passes take every unit once."""
+    plan = probes.ptw_c_plan(G, units, blocks)
+    assert len(plan) == blocks
+    items = [it for b in plan for it in b]
+    keys = [(vc, cb, p) for vc, cb, p, *_ in items]
+    assert len(keys) == len(set(keys)) == probes.NVC * -(-G // 48) * -(-units // 2)
+    for vc in range(probes.NVC):
+        cols = sorted((c0, w) for v, _, p, c0, w, _ in items if v == vc and p == 0)
+        assert cols[0][0] == 0 and all(a + wa == b for (a, wa), (b, _) in zip(cols, cols[1:]))
+        assert cols[-1][0] + cols[-1][1] == G and all(0 < w <= probes.PTW_C_COLS for _, w in cols)
+        assert all(w == probes.PTW_C_COLS for _, w in cols[:-1])
+        assert sum(nu for v, cb, _, _, _, nu in items if v == vc and cb == 0) == units
+    # block b's items are b, b + blocks, ...: at G = 512 on 132 SMs, one each
+    if (G, units, blocks) == (512, 2, 132):
+        assert all(len(b) == 1 for b in plan)
+
+
+def test_ptw_c_scratch_sizes():
+    limbs, sums, barrier = probes.ptw_c_scratch_bytes(512)
+    assert probes.PTW_C_LIMB_BYTES == 12 * 3 * 512 * 64 * 2 == 2_359_296
+    assert limbs == 2 * probes.PTW_C_LIMB_BYTES and sums == 3 * 64 * 512 * 4 and barrier == 256
+    assert probes.ptw_c_scratch_bytes(8) == (limbs, 3 * 64 * 8 * 4, 256)
+    # the sums and the counter start on 16-byte boundaries (the bulk adds' rows)
+    assert limbs % 16 == 0 and (limbs + sums) % 16 == 0
+
+
+def test_ptw_c_limb_layout_unpermutes_to_the_reference(ref_ptw):
+    """The swizzled limb buffer holds every word of the reference's s00,
+    m1 and s11 once: un-permuting it gives them back, and each 128-byte
+    row of a 1024-byte tile of 8 rows holds its 16-byte chunks q at q ^
+    (row % 8)."""
+    w0, w1, bcol = ptw_probe.inputs(["C"])["C"]
+    off = probes.ptw_c_limb_offsets()
+    assert off.shape == (12, 3, 512, 64)
+    flat = off.reshape(-1)
+    assert bool((flat % 2 == 0).all()) and torch.equal(torch.sort(flat).values, torch.arange(0, probes.PTW_C_LIMB_BYTES, 2))
+    # chunk q of row m of a tile: 8 consecutive contraction rows, at q ^ (m % 8)
+    k = torch.arange(0, 64, 8)
+    for m in (0, 5, 13):
+        pos = (off[0, 0, k, m] % 1024 - (m % 8) * 128) // 16
+        assert pos.tolist() == [q ^ (m % 8) for q in range(8)]
+    image = probes.ptw_c_limb_image(probes.ptw_c_limbs(*(torch.from_numpy(a) for a in (w0, w1, bcol))))
+    words = image.view(torch.int16)[flat // 2].view(torch.bfloat16).reshape(12, 3, 512, 64).float().numpy()
+    for vc in (0, 7, 11):
+        b = bcol[:, vc : vc + 1]
+        s00, s01 = (np.asarray(v) for v in ref_ptw._split256(ref_ptw._redfbt(jnp.asarray(w0 * b))))
+        s10, s11 = (np.asarray(v) for v in ref_ptw._split256(ref_ptw._redfbt(jnp.asarray(w1 * b))))
+        np.testing.assert_array_equal(words[vc, 0], s00)
+        np.testing.assert_array_equal(words[vc, 1], s01 + s10)
+        np.testing.assert_array_equal(words[vc, 2], s11)
+
+
+def test_ptw_c_exact_in_any_order_of_summation():
+    """C's exactness argument on the probe's inputs: every limb is an
+    integer of at most 8 bits (|m1| <= 164), every partial sum of a
+    product stays below 2^24, and taking the six products in float32 over
+    shuffled 16-row slices (the tensor cores' k16 steps, in any order),
+    summed in shuffled order, gives ptw_plain's words."""
+    w0, w1, bcol = (torch.from_numpy(a) for a in ptw_probe.inputs(["C"])["C"])
+    limbs = probes.ptw_c_limbs(w0, w1, bcol).float()
+    assert float(limbs[:, [0, 2]].abs().max()) <= 128 and float(limbs[:, 1].abs().max()) <= 164
+    t = torch.arange(-9216, 9217, dtype=torch.float32)  # every balanced residue
+    x0, x1 = probes._split256(t)
+    assert float(x0.abs().max()) <= 128 and float(x1.abs().max()) <= 36
+    # the largest |partial sum| any order can reach: sum_k |limb| |x|
+    worst = {"lo": limbs[:, 0].abs().sum(1) * 128, "mid": limbs[:, 1].abs().sum(1) * 128 + limbs[:, 0].abs().sum(1) * 36,
+             "hi2": limbs[:, 1].abs().sum(1) * 36 + limbs[:, 2].abs().sum(1) * 128, "hi3": limbs[:, 2].abs().sum(1) * 36}
+    assert max(float(v.max()) for v in worst.values()) < 2**24
+    rng = np.random.default_rng(12)
+    acc = torch.zeros((512, 512))
+    peak = 0.0
+    for _ in range(STEPS):
+        xs = probes._split256(probes._redfbt(acc + 1.0))
+        parts = []
+        for _u in range(2):
+            for vc in range(probes.NVC):
+                s = {}
+                for name, terms in (("lo", [(0, 0)]), ("mid", [(1, 0), (0, 1)]), ("hi2", [(1, 1), (2, 0)]), ("hi3", [(2, 1)])):
+                    sl = [(l, xi, k0) for l, xi in terms for k0 in range(0, 512, 16)]
+                    total = torch.zeros((64, 512))
+                    for i in rng.permutation(len(sl)):
+                        l, xi, k0 = sl[i]
+                        total = total + limbs[vc, l, k0 : k0 + 16].T @ xs[xi][k0 : k0 + 16]
+                        peak = max(peak, float(total.abs().max()))
+                    s[name] = total
+                r3 = probes._redfbt(s["hi3"])
+                r2 = probes._redfbt(s["hi2"] + 256.0 * r3)
+                r1 = probes._redfbt(s["mid"] + 256.0 * r2)
+                parts.append(probes._redfbt(s["lo"] + 256.0 * r1))
+        total = torch.zeros((64, 512))
+        for i in rng.permutation(len(parts)):
+            total = total + parts[i]
+        acc = probes._redfbt(total.repeat(8, 1))
+    assert peak < 2**24
+    np.testing.assert_array_equal(acc.numpy(), probes.ptw_plain("C", (w0, w1, bcol), STEPS).numpy())
+
+
+@pytest.mark.parametrize("R,L", [(6144, 128), (37, 100), (21, 130), (9, 36), (5, 18)])
+def test_expand8_plan_writes_each_word_once(R, L):
+    """K7's thread-to-column map: a warp a row of a tile of 128 columns,
+    a lane 4 consecutive columns (one 16-byte store where the row is
+    16-byte aligned), every word of [R, L] written exactly once."""
+    grid, cells = probes.expand8_plan(R, L)
+    assert grid == (-(-R // 8), -(-L // 128))
+    hits = np.zeros((R, L), np.int32)
+    for bx, by, warp, lane, rows, l0, nl, vec in cells:
+        assert l0 == by * 128 + 4 * lane and 1 <= nl <= 4 and vec == (nl == 4 and L % 4 == 0)
+        for r in rows:
+            hits[r, l0 : l0 + nl] += 1
+    assert (hits == 1).all()
+    if (R, L) == (6144, 128):
+        assert grid[0] >= 2 * 132 and all(vec for *_, vec in cells)
