@@ -1657,7 +1657,7 @@ class Smoke:
         a = torch.randint(-128, 129, (2 * probes.NVC * 3 * 64, 512), device=dev).to(torch.bfloat16)
         b = torch.randint(-128, 129, (512, 2 * 512), device=dev).to(torch.bfloat16)
         lib = [graph_ms(lambda: torch.matmul(a, b), 64, 10) * 64]
-        c_ms = [_time_ms(lambda: probes.ptw("C", data["C"], 64), reps=3) for _ in range(2)]
+        c_ms = [_time_ms(lambda: probes.ptw("C", data["C"], 64), reps=10) for _ in range(2)]
         lib.append(graph_ms(lambda: torch.matmul(a, b), 64, 10) * 64)
         lib_eager_ms, _ = _time_ms(lambda: torch.matmul(a, b), reps=64)
         ms, got = sum(m for m, _ in c_ms) / 2, c_ms[-1][1]

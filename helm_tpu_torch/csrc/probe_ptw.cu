@@ -185,7 +185,10 @@ __global__ void __launch_bounds__(TPB) ptw_elem(const float* __restrict__ slab,
 // 221,184. So the tensor cores' f32 sums, the exchange of the products,
 // and the bulk adds into the step's sums in whatever order the blocks
 // reach them, are all exact; and every reduction mod P of C sees an exact
-// integer below 2^24, whose balanced residue is unique (redfbt_c).
+// integer below 2^24, whose balanced residue is unique (redfbt_c). A
+// reduction whose result only feeds another one (the recombination's
+// first three, the feedback's first) need not be balanced: redmod_c keeps
+// it congruent mod P and small enough that the next sum stays exact.
 
 constexpr int N2 = 64, RN = ROWS * N2;  // frequencies, contraction rows
 constexpr int LIMBS = 3;                // s00, m1 = s01 + s10, s11
@@ -229,6 +232,12 @@ __device__ __forceinline__ float redfbt_c(float t) {
   t = __fmaf_rn(-q, P, t);
   t = t > HP ? __fsub_rn(t, P) : t;
   return t < -HP ? __fadd_rn(t, P) : t;
+}
+// t - rint(t / P) P: congruent to t mod P and at most (P + 1) / 2 in
+// magnitude, exact; enough for a value that only feeds another reduction
+__device__ __forceinline__ float redmod_c(float t) {
+  const float q = __fsub_rn(__fadd_rn(__fmul_rn(t, IP), MAGIC), MAGIC);
+  return __fmaf_rn(-q, P, t);
 }
 __device__ __forceinline__ void split_c(float t, float& lo, float& hi) {
   hi = __fsub_rn(__fadd_rn(__fadd_rn(__fmul_rn(t, 0.00390625f), 0.001953125f), MAGIC), MAGIC);
@@ -410,9 +419,9 @@ __device__ __forceinline__ void epilogue_unit(const float (&a)[ACC], float4* __r
       const float lo = v[0][0][e], s00x1 = v[0][1][e], m1x0 = v[1][0][e], m1x1 = v[1][1][e];
       const float s11x0 = v[2][0][e], hi3 = v[2][1][e];
       const float mid = __fadd_rn(m1x0, s00x1), hi2 = __fadd_rn(m1x1, s11x0);
-      const float r3 = redfbt_c(hi3);
-      const float r2 = redfbt_c(__fmaf_rn(256.0f, r3, hi2));
-      const float r1 = redfbt_c(__fmaf_rn(256.0f, r2, mid));
+      const float r3 = redmod_c(hi3);
+      const float r2 = redmod_c(__fmaf_rn(256.0f, r3, hi2));
+      const float r1 = redmod_c(__fmaf_rn(256.0f, r2, mid));
       const float t = redfbt_c(__fmaf_rn(256.0f, r1, lo));
       tsum[4 * g + e] = first ? t : __fadd_rn(tsum[4 * g + e], t);
     }
@@ -533,7 +542,7 @@ __global__ void __launch_bounds__(CTPB, 1)
             float x0[2] = {0.0f, 0.0f}, x1[2] = {0.0f, 0.0f};
             if (c < width) {
 #pragma unroll
-              for (int e = 0; e < 2; ++e) split_c(redfbt_c(__fadd_rn(redfbt_c(v[2 * h + e]), 1.0f)), x0[e], x1[e]);
+              for (int e = 0; e < 2; ++e) split_c(redfbt_c(__fadd_rn(redmod_c(v[2 * h + e]), 1.0f)), x0[e], x1[e]);
             }
             q0[h] = pack_bf16(x0[0], x0[1]);
             q1[h] = pack_bf16(x1[0], x1[1]);
