@@ -18,7 +18,10 @@ The plain versions run the reference's order of operations in float32,
 one multiply and one add each (never a fused multiply-add); the kernels
 do the same with `__fmul_rn` / `__fadd_rn`, so both give the same words
 on any input. The probes' own inputs are integers, and wherever every
-partial sum stays below 2^24 the words are exact whatever the order.
+partial sum stays below 2^24 the words are exact whatever the order:
+K10's C takes its products on the tensor cores and its sums across
+blocks in any order (`ptw_c`; the `ptw_c_*` functions are the host's
+model of its work items, scratch and limb layout).
 
 Dispatch is by the device of the input tensors: on the CPU the plain
 version runs; on a CUDA tensor the kernel is launched, or an error is

@@ -12,7 +12,10 @@ accumulators of K8/K9 pass 2^24 and round, in the same order on both
 sides, so their words agree too. The reference's tools are loaded from
 their paths (tools/ is not a package); K10 runs at the loaded module's
 STEPS set to 2, K8/K9 at 2 steps. The CUDA kernels themselves are held
-against these plain versions on the card by chip_smoke.py phase `probes`.
+against these plain versions on the card by chip_smoke.py phase `probes`;
+here, the host's models of them are: C's work items and scratch, its
+swizzled limb layout against the reference's limbs, the exactness of its
+f32 sums in any order, and K7's thread-to-column map.
 """
 
 import functools
