@@ -83,7 +83,8 @@ Phases, in order (each prints one line, with its seconds):
           liveset_harness, ptw_probe) at the reference's defaults: their
           rates (K7 and K10 also as graph replays), registers a thread and
           spill bytes (cudaFuncGetAttributes of each build); their
-          launches are the phase's
+          launches are the phase's (a graph's calls count once, when the
+          wrapper captures them; its replays launch without the wrappers)
   batch   main path: G=1024 AND gates at GATES_128_K3 (K1, keys seed 2024)
           through mb_pbs.bootstrap, decrypted against the truth table;
           bootstraps/s

@@ -351,12 +351,24 @@ __device__ void zero_share(float* __restrict__ plane, int n, int t, int nt) {
   for (int i = blockIdx.x * per + t; i < end; i += nt) plane[i] = 0.0f;
 }
 
+// All CTPB threads of the block, on named barrier 2 with its thread count,
+// as warp-specialised kernels sync their branches: the barrier counts whole
+// warps as they arrive, wherever in the code they are. The invariant that
+// makes it one barrier: every warp of the block, the build warpgroup's from
+// its branch of the step loop and the consumers' from theirs, arrives
+// exactly once a step, all 32 lanes together; neither branch may leave the
+// loop early or arrive more often. (The non-aligned barrier.sync, which
+// needs no such invariant, made ptxas spill and slowed the products.)
+__device__ __forceinline__ void block_sync_all() {
+  asm volatile("bar.sync 2, %0;" ::"n"(CTPB) : "memory");
+}
+
 // The steps' grid barrier, on a counter that starts at 0: each block's
 // thread 0 arrives with a release add and polls with acquire loads until
 // every block has arrived at barrier `round` (0, 1, ...): one round trip
 // to L2 fewer than grid.sync's atomic add and poll.
 __device__ __forceinline__ void grid_barrier(unsigned* counter, unsigned round) {
-  __syncthreads();
+  block_sync_all();
   if (threadIdx.x == 0) {
     const unsigned target = (round + 1) * gridDim.x;
     asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(counter) : "memory");
@@ -365,7 +377,7 @@ __device__ __forceinline__ void grid_barrier(unsigned* counter, unsigned round) 
       asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(counter) : "memory");
     } while (v < target);
   }
-  __syncthreads();
+  block_sync_all();
 }
 
 template <int N>

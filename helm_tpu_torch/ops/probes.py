@@ -21,7 +21,7 @@ on any input. The probes' own inputs are integers, and wherever every
 partial sum stays below 2^24 the words are exact whatever the order:
 K10's C takes its products on the tensor cores and its sums across
 blocks in any order (`ptw_c`; the `ptw_c_*` functions are the host's
-model of its work items, scratch and limb layout).
+view of its scratch and limb layout).
 
 Dispatch is by the device of the input tensors: on the CPU the plain
 version runs; on a CUDA tensor the kernel is launched, or an error is
@@ -127,9 +127,9 @@ def expand8_plain(x: torch.Tensor, e8: torch.Tensor) -> torch.Tensor:
 
 
 def expand8(x: torch.Tensor, e8: torch.Tensor) -> torch.Tensor:
-    """K7 (csrc/probe_expand8.cu): `expand8_plain`'s function, a warp a
-    row of 128 columns, 4 words a thread in one 16-byte store
-    (`expand8_plan`). x int32 [R, 8], e8 f32 [8, L]."""
+    """K7 (csrc/probe_expand8.cu): `expand8_plain`'s function, a warp two
+    rows of a tile of 128 columns, 4 words a thread in one 16-byte store.
+    x int32 [R, 8], e8 f32 [8, L]."""
     if x.dim() != 2 or x.shape[1] != 8 or e8.dim() != 2 or e8.shape[0] != 8:
         raise ValueError(f"expand8: x [R, 8] and e8 [8, L], got {tuple(x.shape)} and {tuple(e8.shape)}")
     if not _cuda("expand8", x, e8):
@@ -146,35 +146,6 @@ def expand8(x: torch.Tensor, e8: torch.Tensor) -> torch.Tensor:
 
 
 expand8.launches = 0
-
-#: K7's geometry (csrc/probe_expand8.cu): warps a block, rows a warp,
-#: columns a warp (4 a lane)
-EXPAND8_WPB, EXPAND8_RPW, EXPAND8_TILE = 4, 2, 128
-
-
-def expand8_plan(R: int, L: int) -> tuple[tuple[int, int], list]:
-    """K7's launch, modelled: (grid (x, y), and for every (block x, block
-    y, warp, lane) that writes, its (rows, first column, columns, 16-byte
-    store)). A warp takes EXPAND8_RPW consecutive rows, a lane 4
-    consecutive columns of its warp's tile of 128; the last tile's lanes
-    past L write nothing or fewer words, and a row that is not 16-byte
-    aligned (L % 4) is written word by word."""
-    rows_a_block = EXPAND8_WPB * EXPAND8_RPW
-    grid = (-(-R // rows_a_block), -(-L // EXPAND8_TILE))
-    cells = []
-    for bx in range(grid[0]):
-        for by in range(grid[1]):
-            for warp in range(EXPAND8_WPB):
-                r0 = (bx * EXPAND8_WPB + warp) * EXPAND8_RPW
-                rows = range(r0, min(R, r0 + EXPAND8_RPW))
-                for lane in range(32):
-                    l0 = by * EXPAND8_TILE + 4 * lane
-                    if l0 >= L or not rows:
-                        continue
-                    nl = min(4, L - l0)
-                    cells.append((bx, by, warp, lane, rows, l0, nl, nl == 4 and L % 4 == 0))
-    return grid, cells
-
 
 
 # -- K8 and K9: the column splat and the live set ---------------------------
@@ -433,27 +404,6 @@ PTW_C_ATILE = N2 * PTW_C_KC * 2
 PTW_C_LIMB_BYTES = NVC * PTW_C_LIMBS * (ROWS * N2 // PTW_C_KC) * PTW_C_ATILE
 #: bytes of the steps' barrier counter, after the sums
 PTW_C_BAR_BYTES = 256
-
-
-def ptw_c_items(G: int, units: int) -> list[tuple[int, int, int, int, int, int]]:
-    """C's work items in the kernel's order: (group, column block, pass,
-    first column, columns, units). A pass takes two units (the last one of
-    an odd count, one); the last column block of a G that PTW_C_COLS does
-    not divide is narrower, its missing columns masked."""
-    ncb, npass = -(-G // PTW_C_COLS), -(-units // 2)
-    items = []
-    for i in range(NVC * ncb * npass):
-        p, cb, vc = i % npass, i // npass % ncb, i // npass // ncb
-        col0 = cb * PTW_C_COLS
-        items.append((vc, cb, p, col0, min(PTW_C_COLS, G - col0), min(2, units - 2 * p)))
-    return items
-
-
-def ptw_c_plan(G: int, units: int, blocks: int) -> list[list[tuple]]:
-    """Each block's items, in its order: block b takes items b, b +
-    blocks, ... of `ptw_c_items`."""
-    items = ptw_c_items(G, units)
-    return [items[b::blocks] for b in range(blocks)]
 
 
 def ptw_c_scratch_bytes(G: int) -> tuple[int, int, int]:

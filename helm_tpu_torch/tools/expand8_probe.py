@@ -59,7 +59,7 @@ def run(device, reps: int) -> dict:
     bound, by = bound_s(fp32_ops=ops, nbytes=nbytes)
     graph_s = lib_graph_s = None
     if device.type == "cuda":
-        graph_s = graph_ms(lambda: probes.expand8(xd, ed), GRAPH_CALLS, GRAPH_REPLAYS, probes.expand8) / 1e3
+        graph_s = graph_ms(lambda: probes.expand8(xd, ed), GRAPH_CALLS, GRAPH_REPLAYS) / 1e3
         lib_graph_s = graph_ms(lambda: xd.repeat(1, 16), GRAPH_CALLS, GRAPH_REPLAYS) / 1e3
 
     def both(eager, graph):

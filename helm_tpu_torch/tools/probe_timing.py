@@ -70,23 +70,18 @@ def timed(fn, reps: int, device) -> tuple[float, float, object]:
     return first, (time.perf_counter() - t0) / max(reps, 1), out
 
 
-def graph_ms(fn, calls: int, replays: int, counter=None) -> float:
+def graph_ms(fn, calls: int, replays: int) -> float:
     """Device milliseconds a call on the current card: `calls` calls of
     `fn` captured into one CUDA graph (after an eager warm-up call), the
     graph replayed once untimed and then `replays` times between events.
-    A kernel wrapper launches on the current stream, the capture's. When
-    `counter` (a wrapper with a `launches` count) is given, the capture's
-    counts are taken back and each replay adds its `calls` launches, so
-    the count stays the device's launches."""
+    A kernel wrapper launches on the current stream, the capture's, and
+    counts the calls it captures; the replays launch without it."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    before = counter.launches if counter is not None else 0
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
-    if counter is not None:
-        counter.launches = before
     graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -94,8 +89,6 @@ def graph_ms(fn, calls: int, replays: int, counter=None) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    if counter is not None:
-        counter.launches += calls * (replays + 1)
     return start.elapsed_time(end) / (replays * calls)
 
 

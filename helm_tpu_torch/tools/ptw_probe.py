@@ -103,7 +103,7 @@ def run(device, which, steps: int, reps: int = REPS, units: int = UNITS) -> dict
         first, dt, out = timed(call, reps, device)
         graph_s = None
         if device.type == "cuda":
-            graph_s = graph_ms(call, GRAPH_CALLS, GRAPH_REPLAYS, probes.ptw) / 1e3
+            graph_s = graph_ms(call, GRAPH_CALLS, GRAPH_REPLAYS) / 1e3
         assert bool(torch.isfinite(out).all()), f"{pat}: non-finite output"
         units_of = 2.0 if pat == "B2" else 1.0
         ns_unit = dt / steps / units / units_of * 1e9

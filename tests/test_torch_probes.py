@@ -21,6 +21,7 @@ f32 sums in any order, and K7's thread-to-column map.
 import functools
 import importlib.util
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -205,12 +206,28 @@ def test_probe_tools_on_the_cpu(capsys):
 # -- K10's C on wgmma: the host's view of the kernel (csrc/probe_ptw.cu ptw_c) --
 
 
+def ptw_c_plan(G, units, blocks):
+    """C's work items as csrc/probe_ptw.cu ptw_c deals them: item i is
+    (group vc, column block cb, pass p) with p = i % npass, cb = i / npass %
+    ncb, vc = i / npass / ncb, and block b takes items b, b + blocks, ...;
+    each item is (vc, cb, p, first column, columns, units): a pass takes
+    two units (the last one of an odd count, one), and the last column
+    block of a G that PTW_C_COLS does not divide is narrower."""
+    ncb, npass = -(-G // probes.PTW_C_COLS), -(-units // 2)
+    items = []
+    for i in range(probes.NVC * ncb * npass):
+        p, cb, vc = i % npass, i // npass % ncb, i // npass // ncb
+        col0 = cb * probes.PTW_C_COLS
+        items.append((vc, cb, p, col0, min(probes.PTW_C_COLS, G - col0), min(2, units - 2 * p)))
+    return [items[b::blocks] for b in range(blocks)]
+
+
 @pytest.mark.parametrize("G,units,blocks", [(512, 2, 132), (8, 2, 132), (520, 3, 7), (1024, 1, 132)])
 def test_ptw_c_plan_takes_each_item_once(G, units, blocks):
     """Every (group, column block, pass) is one item of exactly one block;
     the column blocks tile [0, G), the last one narrower and its missing
     columns masked; the passes take every unit once."""
-    plan = probes.ptw_c_plan(G, units, blocks)
+    plan = ptw_c_plan(G, units, blocks)
     assert len(plan) == blocks
     items = [it for b in plan for it in b]
     keys = [(vc, cb, p) for vc, cb, p, *_ in items]
@@ -306,12 +323,46 @@ def test_ptw_c_exact_in_any_order_of_summation():
     np.testing.assert_array_equal(acc.numpy(), probes.ptw_plain("C", (w0, w1, bcol), STEPS).numpy())
 
 
+def expand8_geometry():
+    """csrc/probe_expand8.cu's warps a block, rows a warp and columns a
+    warp, read from its source."""
+    with open(os.path.join(REPO, "helm_tpu_torch", "csrc", "probe_expand8.cu")) as f:
+        src = f.read()
+    return tuple(int(re.search(rf"\b{name} = (\d+)", src).group(1)) for name in ("WPB", "RPW", "TILE"))
+
+
+def expand8_plan(R, L):
+    """K7's launch, modelled: (grid (x, y), and for every (block x, block
+    y, warp, lane) that writes, its (rows, first column, columns, 16-byte
+    store)). A warp takes RPW consecutive rows, a lane 4 consecutive
+    columns of its warp's tile; the last tile's lanes past L write nothing
+    or fewer words, and a row that is not 16-byte aligned (L % 4) is
+    written word by word."""
+    wpb, rpw, tile = expand8_geometry()
+    grid = (-(-R // (wpb * rpw)), -(-L // tile))
+    cells = []
+    for bx in range(grid[0]):
+        for by in range(grid[1]):
+            for warp in range(wpb):
+                r0 = (bx * wpb + warp) * rpw
+                rows = range(r0, min(R, r0 + rpw))
+                for lane in range(32):
+                    l0 = by * tile + 4 * lane
+                    if l0 >= L or not rows:
+                        continue
+                    nl = min(4, L - l0)
+                    cells.append((bx, by, warp, lane, rows, l0, nl, nl == 4 and L % 4 == 0))
+    return grid, cells
+
+
 @pytest.mark.parametrize("R,L", [(6144, 128), (37, 100), (21, 130), (9, 36), (5, 18)])
 def test_expand8_plan_writes_each_word_once(R, L):
-    """K7's thread-to-column map: a warp a row of a tile of 128 columns,
-    a lane 4 consecutive columns (one 16-byte store where the row is
-    16-byte aligned), every word of [R, L] written exactly once."""
-    grid, cells = probes.expand8_plan(R, L)
+    """K7's thread-to-column map at the kernel's geometry (4 warps a block,
+    2 rows a warp, a tile of 128 columns): a lane 4 consecutive columns
+    (one 16-byte store where the row is 16-byte aligned), every word of
+    [R, L] written exactly once."""
+    assert expand8_geometry() == (4, 2, 128)
+    grid, cells = expand8_plan(R, L)
     assert grid == (-(-R // 8), -(-L // 128))
     hits = np.zeros((R, L), np.int32)
     for bx, by, warp, lane, rows, l0, nl, vec in cells:
