@@ -62,23 +62,29 @@ Phases, in order (each prints one line, with its seconds):
           K9 (liveset, both csrc/probe_splat.cu) and K10 (ptw,
           csrc/probe_ptw.cu): each against its plain torch version on the
           card, tolerance 0, K7 at [6144, 8] -> [6144, 128] (and against
-          np.tile), K8's four variants at 8 steps and splat at 512, K9's 60
-          builds (R 1-8 x A 1-16 x splat, red, two) at 4 steps and R=8
-          A=12 at 256, K10's five patterns at 3 steps and C at 64 (and C's
+          np.tile), K8's four variants and K9's 60 builds (R 1-8 x A 1-16
+          x splat, red, two) at 0, 1, 4 steps, a stage of the column ring
+          -1, +0, +1 and the ring's depth -1, +1 (ops/probes.py
+          SPLAT_STAGE, SPLAT_RING), and at G=200 (not a multiple of the
+          block), K8's also at 8 steps of their own
+          columns, K8 splat at 512 and K9 R=8 A=12 at 256,
+          K10's five patterns at 3 steps, A, NOB, B, B2 and C at 64 (and C's
           limb buffer, after a launch of 0 steps, byte for byte against
           ops/probes.py's model of its swizzled layout); the timed shapes'
           kernel, plain and library times and bounds go into the kernels
           line (library: x.repeat(1, 16) for K7; for K10's C the bf16
           torch.matmul of a step's stacked (unit, group) limb matrices by
-          its feedback, 64 of them; none for K8 and K9). K7's time and its
-          library's are device times (tools/probe_timing.py graph_ms: 30
-          calls in a CUDA graph, replayed), printed beside their eager
-          times; C's library is timed the same way (a graph of its 64
+          its feedback, 64 of them; none for K8 and K9). K7's, K8's and
+          K9's times and K7's library's are device times
+          (tools/probe_timing.py graph_ms: 30 calls in a CUDA graph for K7,
+          10 for K8 and K9, replayed), printed beside their eager times
+          (CUDA events around calls launched from the host, whose gaps they
+          include); C's library is timed the same way (a graph of its 64
           calls) beside the eager reading. C's clocks a block a step per
           phase (feedback, products, epilogue, barrier, and the concurrent
           build: ops/probes.py ptw_c_phases) and registers and spills are
-          printed. Then, with
-          the four probes' counts set to 0, the probe tools
+          printed; every K8-K10 build must report 0 spill bytes. Then,
+          with the four probes' counts set to 0, the probe tools
           (helm_tpu_torch/tools/expand8_probe, splat_repro,
           liveset_harness, ptw_probe) at the reference's defaults: their
           rates (K7 and K10 also as graph replays), registers a thread and
@@ -1615,31 +1621,54 @@ class Smoke:
         notes.append(f"K7 graph replays {k7[0]:.6f} / {k7[1]:.6f} ms, x.repeat(1, 16) {lib[0]:.6f} / "
                      f"{lib[1]:.6f} ms; eager {eager_ms:.6f} and {lib_eager_ms:.6f} ms")
 
-        # K8: every variant at 8 steps; timed: splat at the reference's 512
-        cols8, rows = (torch.from_numpy(a).to(dev) for a in splat_repro.inputs(8))
+        # K8 and K9: every variant and build at step counts around the column
+        # ring's stage and its depth (0, 1, 4, a stage - 1, + 0, + 1, the
+        # ring - 1, + 1) and at a G that is not a multiple of the block;
+        # timed: K8 splat at the reference's 512 steps, K9 the fs nest, R=8
+        # A=12, at 256
+        stage, ring = probes.SPLAT_STAGE, probes.SPLAT_RING
+        counts = (0, 1, 4, stage - 1, stage, stage + 1, ring - 1, ring + 1)
+        cols8, rows8 = (torch.from_numpy(a).to(dev) for a in splat_repro.inputs(8))
+        cols, rows = (torch.from_numpy(a).to(dev) for a in splat_repro.inputs(512))
+        rows200 = torch.from_numpy(np.random.default_rng(200).integers(-128, 129, (16, 64, 200))
+                                   .astype(np.float32)).to(dev)
         for v in probes.SPLAT_VARIANTS:
             c = cols8.to(torch.int16) if v == "i16" else cols8
-            equal(f"K8 {v} (8 steps)", probes.splat(c, rows, v), probes.splat_plain(c, rows, v))
-        cols, rows = (torch.from_numpy(a).to(dev) for a in splat_repro.inputs(512))
-        ms, got = _time_ms(lambda: probes.splat(cols, rows, "splat"), reps=30)
+            equal(f"K8 {v} (8 steps)", probes.splat(c, rows8, v), probes.splat_plain(c, rows8, v))
+            c = cols.to(torch.int16) if v == "i16" else cols
+            for k in counts:
+                equal(f"K8 {v} ({k} steps)", probes.splat(c[:k], rows, v), probes.splat_plain(c[:k], rows, v))
+            k = stage + 1
+            equal(f"K8 {v} ({k} steps, G=200)", probes.splat(c[:k], rows200[:2], v),
+                  probes.splat_plain(c[:k], rows200[:2], v))
+        eager_ms, got = _time_ms(lambda: probes.splat(cols, rows, "splat"), reps=30)
         plain_ms, ref = _time_ms(lambda: probes.splat_plain(cols, rows, "splat"), warm=False)
         equal("K8 splat (512 steps)", got, ref)
-        record("splat", ms, plain_ms, *splat_repro.work(512, "splat"))
+        k8 = [graph_ms(lambda: probes.splat(cols, rows, "splat"), 10, 10) for _ in range(2)]
+        record("splat", sum(k8) / 2, plain_ms, *splat_repro.work(512, "splat"))
+        notes.append(f"K8 splat graph replays {k8[0]:.6f} / {k8[1]:.6f} ms, eager {eager_ms:.6f}")
 
-        # K9: every (R, A, variant) build at 4 steps; timed: the fs nest, R=8 A=12
         rng = np.random.default_rng(7)
-        cols4 = cols[:4].contiguous()
         for R in probes.LIVESET_RS:
             rowsR = torch.from_numpy(rng.integers(-128, 129, (2 * R, 64, 512)).astype(np.float32)).to(dev)
             for A in probes.LIVESET_AS:
                 for v in probes.LIVESET_VARIANTS:
-                    equal(f"K9 R={R} A={A} {v} (4 steps)", probes.liveset(cols4, rowsR, A, v),
-                          probes.liveset_plain(cols4, rowsR, A, v))
+                    for k in counts:
+                        equal(f"K9 R={R} A={A} {v} ({k} steps)", probes.liveset(cols[:k], rowsR, A, v),
+                              probes.liveset_plain(cols[:k], rowsR, A, v))
+                    k = stage + 1
+                    equal(f"K9 R={R} A={A} {v} ({k} steps, G=200)", probes.liveset(cols[:k], rows200[: 2 * R], A, v),
+                          probes.liveset_plain(cols[:k], rows200[: 2 * R], A, v))
         cols256 = cols[:256].contiguous()
-        ms, got = _time_ms(lambda: probes.liveset(cols256, rowsR, 12, "splat"), reps=10)
+        eager_ms, got = _time_ms(lambda: probes.liveset(cols256, rowsR, 12, "splat"), reps=10)
         plain_ms, ref = _time_ms(lambda: probes.liveset_plain(cols256, rowsR, 12, "splat"), warm=False)
         equal("K9 R=8 A=12 splat (256 steps)", got, ref)
-        record("liveset", ms, plain_ms, *splat_repro.work(256, "splat", 8))
+        k9 = [graph_ms(lambda: probes.liveset(cols256, rowsR, 12, "splat"), 10, 10) for _ in range(2)]
+        record("liveset", sum(k9) / 2, plain_ms, *splat_repro.work(256, "splat", 8))
+        notes.append(f"K9 R=8 A=12 splat graph replays {k9[0]:.6f} / {k9[1]:.6f} ms, eager {eager_ms:.6f}")
+        spills = {f"K8 {v}": probes.splat_resources(1, 1, v) for v in probes.SPLAT_VARIANTS}
+        spills.update({f"K9 R={R} A={A} {v}": probes.splat_resources(R, A, v) for R in probes.LIVESET_RS
+                       for A in probes.LIVESET_AS for v in probes.LIVESET_VARIANTS})
 
         # K10: every pattern at 3 steps; timed: C at the reference's 64 steps.
         # Library: the six bf16 products of one (unit, group) are the three
@@ -1652,6 +1681,9 @@ class Smoke:
         data = {k: [torch.from_numpy(a).to(dev) for a in v] for k, v in ptw_probe.inputs(probes.PTW_PATTERNS).items()}
         for pat in probes.PTW_PATTERNS:
             equal(f"K10 {pat} (3 steps)", probes.ptw(pat, data[pat], 3), probes.ptw_plain(pat, data[pat], 3))
+            if pat != "C":  # C at 64 steps below, with its timing
+                equal(f"K10 {pat} (64 steps)", probes.ptw(pat, data[pat], 64), probes.ptw_plain(pat, data[pat], 64))
+            spills[f"K10 {pat}"] = probes.ptw_resources(pat)
         _, scratch, _ = probes.ptw_c(data["C"], 0)
         image = probes.ptw_c_limb_image(probes.ptw_c_limbs(*data["C"]))
         assert torch.equal(scratch[: probes.PTW_C_LIMB_BYTES].cpu(), image), "K10 C: limb buffer != the host's layout"
@@ -1674,7 +1706,12 @@ class Smoke:
             + ", ".join(f"{k} {v:.0f} ({phases['shares'][k]:.1%})" for k, v in phases["clocks"].items())
             + f" of a {phases['step']:.0f}-clock step over {phases['blocks']} blocks (build concurrent); "
             f"regs {regs}, spill {spill} B; limb buffer == the host's layout")
-        checks = ("K7; K8 x 4 variants; K9 x 60 builds; K10 x 5 patterns: kernel == plain (tolerance 0)")
+        spilled = {k: v for k, v in spills.items() if v[1]}
+        assert not spilled, f"builds that spill (registers, bytes): {spilled}"
+        regs = sorted(r for r, _ in spills.values())
+        checks = (f"K7; K8 x 4 variants and K9 x 60 builds at {', '.join(map(str, counts))} steps and G=200; "
+                  "K10 x 5 patterns: kernel == plain (tolerance 0); "
+                  f"{len(spills)} K8-K10 builds, {regs[0]}-{regs[-1]} registers, 0 spill bytes")
 
         # the probe tools, as a user runs them: this phase's launches
         for w in (probes.expand8, probes.splat, probes.liveset, probes.ptw):

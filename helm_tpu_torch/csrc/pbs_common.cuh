@@ -18,7 +18,8 @@
 //   - the signed 8-bit limbs and the int8 tensor-core product of K4's
 //     N2-point stages (put_limbs, mma_s8);
 //   - the asynchronous copies (mbarrier, cp.async.bulk) and distributed
-//     shared memory of rotate_tiles;
+//     shared memory of rotate_tiles (the bulk copies also feed the probes'
+//     rings: probe_splat.cu, probe_ptw.cu);
 //   - the host-side unpacking and checking of the shape and the constants.
 
 #pragma once
@@ -320,17 +321,28 @@ __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
-// one thread: expect `bytes` on bar and copy them from global src to dst
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
+// one arrival on bar that also expects `bytes` more of asynchronous copies
+__device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// copy `bytes` from global src to dst, completing them on bar
+__device__ __forceinline__ void copy_bulk(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
           "r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// one thread: expect `bytes` on bar and copy them from global src to dst
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  expect_bytes(bar, bytes);
+  copy_bulk(dst, src, bytes, bar);
 }
 
 // distributed shared memory by 32-bit addresses: the shared::cluster
@@ -359,6 +371,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(a), "r"(parity)
         : "memory");
   }
+}
+
+// one arrival on bar (release: this thread's earlier reads of the slot it
+// frees are done)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
 }
 
 // Host: the shape of one rotation; false when the kernels cannot take it

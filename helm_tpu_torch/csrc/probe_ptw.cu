@@ -23,12 +23,19 @@
 //        limb matrices (s00, m1 = s01 + s10, s11), times the feedback's
 //        two bf16 limbs, in six products with f32 accumulation, recombined
 //        mod P
-// Every multiply and add rounds once (__fmul_rn, __fadd_rn, never a fused
-// multiply-add), in the plain version's order.
+// Every product and every sum of products rounds once (__fmul_rn,
+// __fadd_rn, never a fused multiply-add), in the plain version's order;
+// the reductions mod P and the limb splits are exact on the integers they
+// see (redfbt_c, redmod_c, split_c below), so the words are the plain
+// version's.
 //
 // Design. A, NOB, B: each output element's recurrence is its own, so one
 // thread holds one element across all steps (the TPU's sequential grid is
-// a loop inside the thread), its 8 row limb pairs in registers. C: one
+// a loop inside the thread), its 8 row limb pairs in registers; the BSK
+// words do not change across steps or units, so A and B keep all 96 in
+// registers (the compiler hoists them out of the loops: no shared-memory
+// load in the loop, as NOB). Their reductions and splits run at the FP32
+// rate (floorf runs at the conversion rate, and a unit needed 52). C: one
 // persistent cooperative launch, a block per SM, that builds each step's
 // limb matrices once for the card into a scratch buffer laid out as
 // wgmma's shared-memory operands, then takes the products on wgmma with
@@ -60,58 +67,103 @@ constexpr float IP = 0x1.c7162p-15f;  // 1/18433 rounded to float32
 constexpr int TPB = 128;              // A, NOB, B: threads a block
 enum Pattern { PA = 0, PNOB = 1, PT = 2, PC = 3 };
 
-__device__ __forceinline__ float redfbt(float t) {
-  const float q = floorf(__fadd_rn(__fmul_rn(t, IP), 0.5f));
-  t = __fsub_rn(t, __fmul_rn(q, P));
+// The reductions mod P and the limb split, without floorf (a
+// conversion-rate instruction). Every input of a reduction is an exact
+// integer below 2^24 in magnitude, and of a split one below 2^23 (A, NOB,
+// B: the bounds at ptw_elem, where a split's input is at most 9217; C: at
+// ptw_c), so
+//   redfbt_c: t - q P with q = rint(t / P) (the magic-number rounding
+//             M = 1.5 2^23), folded into [-(P-1)/2, (P-1)/2], is the unique
+//             balanced residue of t mod P: the plain version's redfbt word
+//             (t - floor(t/P + 1/2) P, folded);
+//   split_c:  hi = floor(t / 256 + 1/2) = rint(t / 256 + 1/512) exactly (t /
+//             256 + 1/2 is a multiple of 1/256, so the shifted value is
+//             never a tie, and t / 256 + 1/512 fits float32's 24 bits for
+//             |t| < 2^23), lo = t - 256 hi: the plain version's split256
+//             words (t = lo + 256 hi).
+// tests/test_torch_probes.py checks both identities over these domains and
+// that the plain versions' values at the probe's inputs lie in them.
+constexpr float MAGIC = 12582912.0f;
+__device__ __forceinline__ float redfbt_c(float t) {
+  const float q = __fsub_rn(__fadd_rn(__fmul_rn(t, IP), MAGIC), MAGIC);
+  t = __fmaf_rn(-q, P, t);
   t = t > HP ? __fsub_rn(t, P) : t;
   return t < -HP ? __fadd_rn(t, P) : t;
 }
-
-__device__ __forceinline__ void split256(float t, float& lo, float& hi) {
-  hi = floorf(__fadd_rn(__fmul_rn(t, 0.00390625f), 0.5f));
-  lo = __fsub_rn(t, __fmul_rn(256.0f, hi));
+// t - rint(t / P) P: congruent to t mod P and at most (P + 1) / 2 in
+// magnitude, exact; enough for a value that only feeds another reduction
+__device__ __forceinline__ float redmod_c(float t) {
+  const float q = __fsub_rn(__fadd_rn(__fmul_rn(t, IP), MAGIC), MAGIC);
+  return __fmaf_rn(-q, P, t);
+}
+__device__ __forceinline__ void split_c(float t, float& lo, float& hi) {
+  hi = __fsub_rn(__fadd_rn(__fadd_rn(__fmul_rn(t, 0.00390625f), 0.001953125f), MAGIC), MAGIC);
+  lo = __fmaf_rn(-256.0f, hi, t);
 }
 
 // A and NOB: out [N2, G], the block on 128 gates of frequency row n, the
-// row's 96 BSK words in shared memory. B: out [G, L], L dividing 128, the
-// whole slab [96, L] in shared memory.
+// row's 96 BSK words in shared memory (A reads them four at a time, one
+// float4 broadcast). B: out [G, L], L dividing 128, the whole slab [96, L]
+// in shared memory.
+//
+// Why the words are the plain version's with the reductions above. Every
+// value is an integer: the accumulator and base are balanced residues
+// (|.| <= 9216); a row's split input base + k is at most 9216 + 8 units in
+// magnitude before its reduction, and the split's input at most 9217
+// after it, so |lo| <= 128 and |hi| <= 36; with |b| <= 9216 (NOB: <= 26)
+// a group's sums are |slo| <= 8 x 128 x 9216 ~ 9.4M and |shi| <= 8 x 36 x
+// 9216 ~ 2.7M, both below 2^24, so every product and partial sum is
+// exact; t = red(slo) + 256 red(shi) is at most 9217 x 257 ~ 2.4M, and
+// the unit's total (the first t, then 23 residues added) stays below 2.6M.
+// A reduction whose result only feeds another one (base, the row's split
+// input, the group's two sums and each t after the first) uses redmod_c:
+// its result differs from the plain version's redfbt but is congruent to
+// it mod P, and the step's accumulator, the one value that leaves the
+// step, is redfbt_c of a total congruent to the plain version's total:
+// the same balanced residue.
 template <int PAT>
 __global__ void __launch_bounds__(TPB) ptw_elem(const float* __restrict__ slab,
                                                 float* __restrict__ out, int rows_out,
                                                 int cols_out, int steps, int units) {
-  extern __shared__ float s[];
+  extern __shared__ float4 s4[];
+  float* s = reinterpret_cast<float*>(s4);
   int e, l = 0;
-  const float* bk;  // the BSK word of term k is bk[k * stride]
-  int stride;
   if constexpr (PAT == PT) {
     const int L = cols_out;
     for (int i = threadIdx.x; i < NT * L; i += TPB) s[i] = slab[i];
     e = blockIdx.x * TPB + threadIdx.x;
     l = e % L;
-    bk = s + l;
-    stride = L;
   } else {
     const int n = blockIdx.y;
     if constexpr (PAT == PA)
       for (int i = threadIdx.x; i < NT; i += TPB) s[i] = slab[n * NT + i];
     e = n * cols_out + blockIdx.x * TPB + threadIdx.x;
-    bk = s;
-    stride = 1;
   }
   __syncthreads();
   const bool live = PAT == PT ? e < rows_out * cols_out
                               : (int)(blockIdx.x * TPB + threadIdx.x) < cols_out;
   float acc = 0.0f;
   for (int j = 0; j < steps; ++j) {
-    const float base = redfbt(__fadd_rn(acc, 1.0f));
+    const float base = redmod_c(__fadd_rn(acc, 1.0f));
     float total = 0.0f;
     for (int u = 0; u < units; ++u) {
       float flo[ROWS], fhi[ROWS];
 #pragma unroll
       for (int r = 0; r < ROWS; ++r)
-        split256(redfbt(__fadd_rn(base, (float)(u * ROWS + r))), flo[r], fhi[r]);
+        split_c(redmod_c(__fadd_rn(base, (float)(u * ROWS + r))), flo[r], fhi[r]);
 #pragma unroll
       for (int vc = 0; vc < NVC; ++vc) {
+        float b[ROWS];  // the group's BSK words (NOB: unused)
+        if constexpr (PAT == PA) {
+#pragma unroll
+          for (int h = 0; h < ROWS / 4; ++h) {
+            const float4 q = s4[vc * (ROWS / 4) + h];
+            b[4 * h] = q.x, b[4 * h + 1] = q.y, b[4 * h + 2] = q.z, b[4 * h + 3] = q.w;
+          }
+        } else if constexpr (PAT == PT) {
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) b[r] = s[(vc * ROWS + r) * cols_out + l];
+        }
         float slo, shi;
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
@@ -120,17 +172,17 @@ __global__ void __launch_bounds__(TPB) ptw_elem(const float* __restrict__ slab,
             blo = 3.0f + (float)(r + vc);
             bhi = 5.0f + (float)(r + vc);
           } else {
-            blo = bhi = bk[(vc * ROWS + r) * stride];
+            blo = bhi = b[r];
           }
           const float plo = __fmul_rn(flo[r], blo), phi = __fmul_rn(fhi[r], bhi);
           slo = r == 0 ? plo : __fadd_rn(slo, plo);
           shi = r == 0 ? phi : __fadd_rn(shi, phi);
         }
-        const float t = __fadd_rn(redfbt(slo), __fmul_rn(256.0f, redfbt(shi)));
-        total = (u == 0 && vc == 0) ? t : __fadd_rn(total, redfbt(t));
+        const float t = __fadd_rn(redmod_c(slo), __fmul_rn(256.0f, redmod_c(shi)));
+        total = (u == 0 && vc == 0) ? t : __fadd_rn(total, redmod_c(t));
       }
     }
-    acc = redfbt(total);
+    acc = redfbt_c(total);
   }
   if (live) out[e] = acc;
 }
@@ -218,32 +270,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// C's reductions without floorf (a conversion-rate instruction): every
-// input of them is an exact integer below 2^24 in magnitude, so
-//   redfbt_c: t - q P with q = rint(t / P) (the magic-number rounding
-//             M = 1.5 2^23), folded into [-(P-1)/2, (P-1)/2], is the unique
-//             balanced residue of t mod P: redfbt's word;
-//   split_c:  hi = floor(t / 256 + 1/2) = rint(t / 256 + 1/512) exactly (t /
-//             256 + 1/2 is a multiple of 1/256, so the shifted value is
-//             never a tie), lo = t - 256 hi: split256's words.
-constexpr float MAGIC = 12582912.0f;
-__device__ __forceinline__ float redfbt_c(float t) {
-  const float q = __fsub_rn(__fadd_rn(__fmul_rn(t, IP), MAGIC), MAGIC);
-  t = __fmaf_rn(-q, P, t);
-  t = t > HP ? __fsub_rn(t, P) : t;
-  return t < -HP ? __fadd_rn(t, P) : t;
-}
-// t - rint(t / P) P: congruent to t mod P and at most (P + 1) / 2 in
-// magnitude, exact; enough for a value that only feeds another reduction
-__device__ __forceinline__ float redmod_c(float t) {
-  const float q = __fsub_rn(__fadd_rn(__fmul_rn(t, IP), MAGIC), MAGIC);
-  return __fmaf_rn(-q, P, t);
-}
-__device__ __forceinline__ void split_c(float t, float& lo, float& hi) {
-  hi = __fsub_rn(__fadd_rn(__fadd_rn(__fmul_rn(t, 0.00390625f), 0.001953125f), MAGIC), MAGIC);
-  lo = __fmaf_rn(-256.0f, hi, t);
-}
-
 // byte offset of 16-byte chunk q of row `row` in a tile of 128-byte rows:
 // the 128-byte swizzle of wgmma's shared-memory layout (chunk q ^ row % 8)
 __device__ __forceinline__ uint32_t swz(int row, int q) {
@@ -285,9 +311,6 @@ __device__ __forceinline__ void fence_acc(float (&d)[2][ACC]) {
 
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(CTHREADS) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
 }
 // generic-proxy writes before async-proxy reads (and back), in shared or global memory
 __device__ __forceinline__ void fence_async_shared() {

@@ -16,12 +16,14 @@ hand-written CUDA kernel for sm_90a (`csrc/probe_*.cu`, built by
 
 The plain versions run the reference's order of operations in float32,
 one multiply and one add each (never a fused multiply-add); the kernels
-do the same with `__fmul_rn` / `__fadd_rn`, so both give the same words
-on any input. The probes' own inputs are integers, and wherever every
-partial sum stays below 2^24 the words are exact whatever the order:
-K10's C takes its products on the tensor cores and its sums across
-blocks in any order (`ptw_c`; the `ptw_c_*` functions are the host's
-view of its scratch and limb layout).
+do the same with `__fmul_rn` / `__fadd_rn`, so K7-K9 give the same words
+on any input (K9's `red` floors by a rounding that is exact below 2^22).
+The probes' own inputs are integers, and wherever every partial sum
+stays below 2^24 the words are exact whatever the order and however the
+reductions mod P round: K10 reduces and splits integers by magic-number
+rounding, and its C takes its products on the tensor cores and its sums
+across blocks in any order (`ptw_c`; the `ptw_c_*` functions are the
+host's view of its scratch and limb layout).
 
 Dispatch is by the device of the input tensors: on the CPU the plain
 version runs; on a CUDA tensor the kernel is launched, or an error is
@@ -48,6 +50,10 @@ LIVESET_RS = (1, 2, 4, 8)
 LIVESET_AS = (1, 4, 8, 12, 16)
 #: K9's `red` modulus
 RED_P = 16381.0
+#: K8/K9: columns a stage of the ring that streams them into shared memory
+#: (one barrier wait a stage), and columns in the ring (csrc/probe_splat.cu
+#: CPS, STAGES x CPS)
+SPLAT_STAGE, SPLAT_RING = 8, 32
 
 #: K10: rows, term groups ((nv-1) x (k+1)) and the modulus of ptw_probe.py
 ROWS, NVC, PTW_P = 8, 12, 18433.0
@@ -201,6 +207,8 @@ def _splat_launch(name, cols, rows, R, A, variant):
     if cols.dtype != want or rows.dtype != torch.float32:
         raise TypeError(f"{name} {variant}: cols {want} and rows float32, got {cols.dtype} and {rows.dtype}")
     cols, rows = cols.contiguous(), rows.contiguous()
+    if variant in ("splat", "i16", "red") and cols.data_ptr() % 16:
+        cols = cols.clone()  # the kernel streams the columns by 16-byte bulk copies
     G = rows.shape[2]
     out = torch.empty((1, n2, G), dtype=torch.float32, device=rows.device)
     _launch("probe_splat", "helm_probe_splat", [_I, _I, _I, _P, _P, _P, _I, _I, _I],

@@ -2,6 +2,7 @@
 
     python3 helm_tpu_torch/tools/kernel_ab.py time <checkout> <label> [k1,k6,k2,k4,k3]
     python3 helm_tpu_torch/tools/kernel_ab.py sass <checkout A> <checkout B> <out dir>
+    python3 helm_tpu_torch/tools/kernel_ab.py probe_sass <checkout A> <checkout B> <out dir>
 
 `time` imports the port and `chip_smoke.py` from <checkout>, builds the
 kernels named (default k1,k6,k2) there, and times each wrapper by CUDA
@@ -18,8 +19,13 @@ kernels named, with the signatures of this one.
 cubins with nvcc, writes their `cuobjdump -sass` into <out dir>, and
 compares the machine code of each rotate_tiles instantiation, matched by
 (grouping, rows, narrow), instruction by instruction (the encodings and
-addresses aside). Needs nvcc (under /usr/local/cuda) and, for `time`, a
-card.
+addresses aside). `probe_sass` compiles the probes K8/K9
+(`csrc/probe_splat.cu`) and K10 (`csrc/probe_ptw.cu`) of both checkouts
+the same way and prints, for each of K8's variants, K9's R=8 A=12 splat
+and red and K10's A, NOB and B, the instructions of the function and of
+each loop (a backward branch and what it jumps over, innermost first:
+K8/K9's step, K10's unit), by opcode. Needs nvcc (under /usr/local/cuda)
+and, for `time`, a card.
 """
 
 from __future__ import annotations
@@ -119,12 +125,75 @@ def compare_sass(a_root: str, b_root: str, out_dir: str) -> bool:
     return same
 
 
+#: the probe builds whose machine code `probe_sass` counts: (source, label,
+#: mangled-name pattern)
+PROBE_FUNCS = (
+    [("probe_splat", f"K8 {v}", rf"splat_bodyILi1ELi1ELi{i}E") for i, v in enumerate(("scalar", "splat", "impl", "i16"))]
+    + [("probe_splat", f"K9 R=8 A=12 {v}", rf"splat_bodyILi8ELi12ELi{i}E") for i, v in ((1, "splat"), (4, "red"))]
+    + [("probe_ptw", f"K10 {v}", rf"ptw_elemILi{i}E") for i, v in enumerate(("A", "NOB", "B"))]
+)
+
+
+def sass_functions(cu: str, out_dir: str, tag: str) -> dict:
+    """{mangled name: [(address, opcode, branch target or None), ...]} of
+    the cubin of `cu`, its `cuobjdump -sass` written to out_dir."""
+    name = os.path.basename(cu)[:-3]
+    cubin = os.path.join(out_dir, f"{name}_{tag}.cubin")
+    subprocess.run([os.path.join(CUDA_BIN, "nvcc"), *FLAGS, "-cubin", "-o", cubin, cu], check=True)
+    text = subprocess.run([os.path.join(CUDA_BIN, "cuobjdump"), "-sass", cubin], check=True,
+                          capture_output=True, text=True).stdout
+    with open(os.path.join(out_dir, f"{name}_{tag}.sass"), "w") as f:
+        f.write(text)
+    funcs = {}
+    for part in text.split("Function : ")[1:]:
+        code = []
+        for m in re.finditer(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", part, re.M):
+            ins = re.sub(r"^@!?U?P[T0-9]+\s+", "", m.group(2).strip())
+            op = ins.split()[0] if ins else "?"
+            tgt = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins) if op.startswith("BRA") else None
+            code.append((int(m.group(1), 16), op, int(tgt.group(1), 16) if tgt else None))
+        funcs[part.split("\n", 1)[0].strip()] = code
+    return funcs
+
+
+def opcode_counts(code) -> dict:
+    """Instructions by opcode with its modifiers (FADD and FADD.RM apart,
+    LDS and LDS.128), most frequent first."""
+    counts = {}
+    for _, op, _ in code:
+        counts[op] = counts.get(op, 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def probe_sass(a_root: str, b_root: str, out_dir: str) -> None:
+    os.makedirs(out_dir, exist_ok=True)
+    for tag, root in (("a", a_root), ("b", b_root)):
+        funcs = {}
+        for src in ("probe_splat", "probe_ptw"):
+            funcs[src] = sass_functions(os.path.join(root, "helm_tpu_torch", "csrc", f"{src}.cu"), out_dir, tag)
+        for src, label, pattern in PROBE_FUNCS:
+            hit = [(n, c) for n, c in funcs[src].items() if re.search(pattern, n)]
+            if not hit:
+                print(json.dumps({"tree": tag, "build": label, "found": False}))
+                continue
+            name, code = hit[0]
+            loops = sorted(((t, a) for a, _, t in code if t is not None and t <= a), key=lambda ta: ta[1] - ta[0])
+            print(json.dumps({"tree": tag, "build": label, "instructions": len(code),
+                              "classes": opcode_counts(code),
+                              "loops": [{"from": hex(t), "to": hex(a), "instructions": sum(t <= x <= a for x, _, _ in code),
+                                         "classes": opcode_counts([c for c in code if t <= c[0] <= a])}
+                                        for t, a in loops]}), flush=True)
+
+
 def main(argv) -> int:
     if len(argv) >= 3 and argv[0] == "time":
         time_checkout(os.path.abspath(argv[1]), argv[2], (argv[3] if len(argv) > 3 else "k1,k6,k2").split(","))
         return 0
     if len(argv) == 4 and argv[0] == "sass":
         return 0 if compare_sass(*argv[1:]) else 1
+    if len(argv) == 4 and argv[0] == "probe_sass":
+        probe_sass(*argv[1:])
+        return 0
     print(__doc__, file=sys.stderr)
     return 2
 

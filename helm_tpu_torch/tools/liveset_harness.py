@@ -3,12 +3,15 @@
 K8's term with R resident row pairs and A accumulator pairs: term i
 multiplies row pair i % R into accumulator pair i % A. R = 1, A = 1 is
 K8's shape; R = 8, A = 12 the fs kernel's nest (8 limb pairs, 12 term
-groups). Variants: splat (K8's), red (a floor-round reduction mod 16381
-of the pair every 8 terms), two (a second resident row in place of the
-column). On the TPU the live set was [N2, G] arrays in vector registers;
+groups). Variants: splat (K8's: the step's column streamed into shared
+memory ahead of its step and broadcast to the row's threads), red (a
+floor-round reduction mod 16381 of the pair every 8 terms), two (a second
+resident row in place of the column). On the TPU the live set was [N2, G] arrays in vector registers;
 on the card it is 2R + 2A floats a thread, and each build's registers a
 thread and spill bytes say where the register file runs out. Prints the
-reference's M terms/s and T fma-elems/s per (R, A, variant).
+reference's M terms/s and T fma-elems/s per (R, A, variant), and each
+call's time eager and as device time (splat_repro's GRAPH_CALLS calls in
+a CUDA graph, replayed; not measured on the CPU).
 
     python -m helm_tpu_torch.tools.liveset_harness                # the card (K9)
     python -m helm_tpu_torch.tools.liveset_harness --device cpu   # the plain version
@@ -27,7 +30,7 @@ import torch
 
 from ..ops import probes
 from . import splat_repro
-from .probe_timing import bound_s, device_arg, device_name, notes, timed
+from .probe_timing import bound_s, device_arg, device_name, graph_ms, notes, timed
 
 N2, T = probes.N2, probes.T
 
@@ -44,14 +47,19 @@ def run(device, steps: int, reps: int, G: int, rs, as_, variants) -> dict:
             for v in variants:
                 _, dt, out = timed(lambda: probes.liveset(cols, rows, A, v), reps, device)
                 assert bool(torch.isfinite(out).all()), f"R={R} A={A} {v}: non-finite output"
+                graph_s = None
+                if device.type == "cuda":
+                    graph_s = graph_ms(lambda: probes.liveset(cols, rows, A, v), splat_repro.GRAPH_CALLS,
+                                       splat_repro.GRAPH_REPLAYS) / 1e3
                 tps = steps * T / dt
                 ops, nbytes = splat_repro.work(steps, v, R, G)
                 bound, by = bound_s(fp32_ops=ops, nbytes=nbytes)
-                res[(R, A, v)] = {"terms_per_s": tps, "s": dt, "bound_s": bound, "bound_by": by}
+                res[(R, A, v)] = {"terms_per_s": tps, "s": dt, "graph_s": graph_s, "bound_s": bound, "bound_by": by}
+                graph = "not measured (cpu)" if graph_s is None else f"{graph_s * 1e3:.6f} ms"
                 print(
                     f"R={R:2d} A={A:2d} {v:5s} live {2 * R + 2 * A:3d} floats: {tps / 1e6:8.2f} M terms/s "
-                    f"({tps * fma / 1e12:6.3f} T fma-elems/s); {dt * 1e3:.6f} ms a call; "
-                    f"{notes(device, bound, by, lambda: probes.splat_resources(R, A, v))}",
+                    f"({tps * fma / 1e12:6.3f} T fma-elems/s); {dt * 1e3:.6f} ms a call eager, graph replay "
+                    f"{graph}; {notes(device, bound, by, lambda: probes.splat_resources(R, A, v))}",
                     flush=True,
                 )
     return res

@@ -4,12 +4,16 @@ Per step, T = 96 terms (the fs pointwise stage's terms a (prime, tile) at
 GATES_128_K3), each one column of a [64, 96] block broadcast across G =
 512 gates and consumed by two multiply-adds against two resident [64, 512]
 rows. Variants, as in the reference: scalar (a constant a term: no
-operand), splat (the column staged in shared memory and read by every
-thread of its row), impl (each thread reads the column word from global
-memory), i16 (int16 columns, converted in the thread). splat, impl and
-i16 must give the same words. Prints the reference's M terms/s, T
-fma-elems/s and the splat-vs-scalar ratio, and each build's registers a
-thread and spill bytes: the card's answer to the probe's question.
+operand), splat (the column streamed into a ring in shared memory by bulk
+copies issued steps ahead, and read by every thread of its row, four
+terms a broadcast load), impl (each thread reads the column word from
+global memory), i16 (int16 columns, streamed as they are and converted in
+the thread). splat, impl and i16 must give the same words. Prints the reference's M terms/s, T
+fma-elems/s and the splat-vs-scalar ratio, each call's time eager (CUDA
+events around REPS calls: the host's launches included) and as device
+time (GRAPH_CALLS calls in a CUDA graph, replayed GRAPH_REPLAYS times;
+not measured on the CPU), and each build's registers a thread and spill
+bytes: the card's answer to the probe's question.
 
     python -m helm_tpu_torch.tools.splat_repro                # the card (K8)
     python -m helm_tpu_torch.tools.splat_repro --device cpu   # the plain version
@@ -27,9 +31,11 @@ import numpy as np
 import torch
 
 from ..ops import probes
-from .probe_timing import bound_s, device_arg, device_name, notes, timed
+from .probe_timing import bound_s, device_arg, device_name, graph_ms, notes, timed
 
 N2, G, T = probes.N2, 512, probes.T
+#: calls in a CUDA graph and its timed replays (the card)
+GRAPH_CALLS, GRAPH_REPLAYS = 5, 4
 
 
 def inputs(steps: int):
@@ -59,14 +65,19 @@ def run(device, steps: int, reps: int, variants) -> dict:
         cols = torch.from_numpy(cols_f.astype(np.int16) if v == "i16" else cols_f).to(device)
         first, dt, out = timed(lambda: probes.splat(cols, rows_d, v), reps, device)
         outs[v] = out
+        graph_s = None
+        if device.type == "cuda":
+            graph_s = graph_ms(lambda: probes.splat(cols, rows_d, v), GRAPH_CALLS, GRAPH_REPLAYS) / 1e3
         tps = steps * T / dt
         ops, nbytes = work(steps, v)
         bound, by = bound_s(fp32_ops=ops, nbytes=nbytes)
-        res[v] = {"terms_per_s": tps, "s": dt, "first_s": first, "bound_s": bound, "bound_by": by}
+        res[v] = {"terms_per_s": tps, "s": dt, "graph_s": graph_s, "first_s": first, "bound_s": bound,
+                  "bound_by": by}
         splat_bytes = 2 * N2 * G * (2 if v == "i16" else 4)
+        graph = "not measured (cpu)" if graph_s is None else f"{graph_s * 1e3:.6f} ms"
         print(
             f"{v:7s}: {tps / 1e6:8.2f} M terms/s  ({tps * 2 * N2 * G / 1e12:6.3f} T fma-elems/s; "
-            f"splat model {splat_bytes} B/term); {dt * 1e3:.6f} ms a call; "
+            f"splat model {splat_bytes} B/term); {dt * 1e3:.6f} ms a call eager, graph replay {graph}; "
             f"{notes(device, bound, by, lambda: probes.splat_resources(1, 1, v))}",
             flush=True,
         )

@@ -372,3 +372,164 @@ def test_expand8_plan_writes_each_word_once(R, L):
     assert (hits == 1).all()
     if (R, L) == (6144, 128):
         assert grid[0] >= 2 * 132 and all(vec for *_, vec in cells)
+
+
+# -- the kernels' exact FP32-rate rounding, tied to the probes' data ----------
+#
+# csrc/probe_splat.cu (K8/K9's `red`) takes floor(y) as RD(y + 1.5 2^23) -
+# 1.5 2^23, exact for |y| < 2^22; csrc/probe_ptw.cu (K10's A, NOB, B, B2
+# and C) reduces mod P and splits by magic-number rounding (redfbt_c,
+# redmod_c: integers below 2^24; split_c: below 2^23). The tests below check
+# that the plain versions feed their floors only values of that domain, on
+# the probes' own inputs and seeds, and check each identity over the domain
+# in numpy (float32 operations round to nearest, as the kernels' _rn ones).
+
+MAGIC = np.float32(1.5 * 2**23)
+
+
+def _add_rd(y, m):
+    """float32 y + m rounded toward -inf (__fadd_rd), for |y| <= |m|: the
+    sum in float64 with its exact error (fast two-sum), then the nearest
+    float32 stepped down where it lies above the exact sum."""
+    y64, m64 = y.astype(np.float64), np.float64(m)
+    s = y64 + m64
+    e = y64 - (s - m64)
+    f = s.astype(np.float32)
+    return np.where(f.astype(np.float64) - s > e, np.nextafter(f, np.float32(-np.inf)), f)
+
+
+def _floor_rd(y):
+    """csrc/probe_splat.cu reduce16381's floor."""
+    return _add_rd(y, MAGIC) - MAGIC
+
+
+def _rint(x):
+    return (x + MAGIC) - MAGIC  # float32, round to nearest even
+
+
+def _redmod_c(t):
+    q = _rint(t * np.float32(1.0 / probes.PTW_P))
+    return (t.astype(np.float64) - q.astype(np.float64) * probes.PTW_P).astype(np.float32)  # fmaf: one rounding
+
+
+def _redfbt_c(t):
+    t = _redmod_c(t)
+    hp, p = np.float32(9216.0), np.float32(probes.PTW_P)
+    t = np.where(t > hp, t - p, t)
+    return np.where(t < -hp, t + p, t)
+
+
+def _split_c(t):
+    hi = _rint(t * np.float32(1 / 256) + np.float32(1 / 512))
+    return (t.astype(np.float64) - 256.0 * hi.astype(np.float64)).astype(np.float32), hi
+
+
+def test_splat_ring_depth_is_the_kernels():
+    with open(os.path.join(REPO, "helm_tpu_torch", "csrc", "probe_splat.cu")) as f:
+        src = f.read()
+    cps, stages = (int(re.search(rf"\b{name} = (\d+);", src).group(1)) for name in ("CPS", "STAGES"))
+    assert (probes.SPLAT_STAGE, probes.SPLAT_RING) == (cps, stages * cps)
+
+
+@pytest.mark.parametrize("R,A", [(1, 1), (8, 12)])
+def test_liveset_red_floors_stay_in_the_round_down_domain(monkeypatch, R, A):
+    """liveset_harness's inputs (seed 7: its 256 steps of columns, then the
+    rows of R = 1, 2, 4, 8 in turn), its first 8 steps: every value `red`
+    passes to floor is finite and below 2^22 in magnitude."""
+    rng = np.random.default_rng(7)
+    cols = rng.integers(-16384, 16384, (256, 64, 96)).astype(np.float32)
+    rows = {r: rng.integers(-128, 129, (2 * r, 64, 512)).astype(np.float32) for r in probes.LIVESET_RS}
+    seen = []
+    floor = torch.floor
+
+    def recording_floor(y):
+        seen.append(float(y.abs().max()))
+        assert bool(torch.isfinite(y).all())
+        return floor(y)
+
+    monkeypatch.setattr(torch, "floor", recording_floor)
+    probes.liveset_plain(torch.from_numpy(cols[:8]), torch.from_numpy(rows[R]), A, "red")
+    assert len(seen) == 8 * 96 // 8 * 2 and max(seen) < 2**22
+
+
+@pytest.mark.parametrize("pattern", ["A", "NOB", "B", "B2"])
+def test_ptw_reductions_see_only_exact_integers(monkeypatch, pattern):
+    """ptw_probe's inputs (seed 0), 3 steps: every value that A, NOB, B and
+    B2's plain version reduces mod P is an integer below 2^24 in magnitude
+    (the domain of the kernel's redfbt_c and redmod_c), every value it
+    splits one below 2^23 (split_c's)."""
+    data = {k: [torch.from_numpy(a) for a in v] for k, v in ptw_probe.inputs(["B2"]).items()}
+    seen = {"_redfbt": [], "_split256": []}
+
+    def recorder(name):
+        fn = getattr(probes, name)
+
+        def wrapped(t):
+            assert bool((t == torch.round(t)).all()), f"{name} of a value that is not an integer"
+            seen[name].append(float(t.abs().max()))
+            return fn(t)
+        return wrapped
+
+    for name in seen:
+        monkeypatch.setattr(probes, name, recorder(name))
+    probes.ptw_plain(pattern, data[pattern], 3)
+    # a step: base and acc, and per unit 8 rows and 12 groups' three; the
+    # first t of a step is added unreduced
+    assert len(seen["_redfbt"]) == 3 * (2 + 2 * (8 + 3 * 12) - 1) and len(seen["_split256"]) == 3 * 2 * 8
+    assert max(seen["_redfbt"]) < 2**24 and max(seen["_split256"]) < 2**23
+
+
+def test_round_down_floor_is_exact_below_2_22():
+    """floor(y) = RD(y + 1.5 2^23) - 1.5 2^23 for float32 |y| < 2^22: on
+    uniform values, on every sampled integer and its float32 neighbours,
+    and on tiny values of both signs."""
+    rng = np.random.default_rng(22)
+    k = rng.integers(-(2**22) + 1, 2**22, 1_000_000).astype(np.float32)
+    ys = [rng.uniform(-(2**22), 2**22, 1_000_000).astype(np.float32), k,
+          np.nextafter(k, np.float32(np.inf)), np.nextafter(k, np.float32(-np.inf)),
+          (rng.standard_normal(500_000) * 10.0 ** rng.uniform(-30, 0, 500_000)).astype(np.float32),
+          np.float32([2**22 - 0.5, -(2**22) + 0.5, 0.0, -0.0, 0.5, -0.5])]
+    y = np.concatenate(ys)
+    assert np.abs(y).max() < 2**22
+    np.testing.assert_array_equal(_floor_rd(y), np.floor(y))
+
+
+def test_magic_reductions_equal_the_plain_version_below_2_24():
+    """redfbt_c gives the plain version's words (probes._redfbt) for
+    integers below 2^24, split_c probes._split256's below 2^23: every
+    integer up to 2^16, 3M uniform ones, and the folds' and the split's
+    edges (P k + 9216, +9217, 256 k + 128 and their neighbours); redmod_c
+    is congruent mod P and at most (P + 1) / 2 in magnitude."""
+    rng = np.random.default_rng(24)
+    P = int(probes.PTW_P)
+    kp = rng.integers(-(2**24) // P, 2**24 // P, 200_000)
+    k256 = rng.integers(-(2**16) + 1, 2**16 - 1, 200_000)
+    edges = [P * kp + d for d in (-9217, -9216, 9216, 9217)] + [256 * k256 + d for d in (-129, -128, -127, 127, 128, 129)]
+    t = np.concatenate([np.arange(-(2**16), 2**16 + 1), rng.integers(-(2**24) + 1, 2**24, 3_000_000), *edges])
+    t = t[np.abs(t) < 2**24].astype(np.float32)
+    np.testing.assert_array_equal(_redfbt_c(t), probes._redfbt(torch.from_numpy(t)).numpy())
+    r = _redmod_c(t).astype(np.int64)
+    assert np.abs(r).max() <= (P + 1) // 2 and ((t.astype(np.int64) - r) % P == 0).all()
+    t = t[np.abs(t) < 2**23]
+    lo, hi = _split_c(t)
+    plo, phi = probes._split256(torch.from_numpy(t))
+    np.testing.assert_array_equal(lo, plo.numpy())
+    np.testing.assert_array_equal(hi, phi.numpy())
+
+
+def test_int16_halves_convert_exactly():
+    """csrc/probe_splat.cu lo16 / hi16 on every int16 in either half of a
+    word: 2^23 + (v + 2^15) and 1.5 2^23 + v built in the float's bits,
+    less the offset, is v; lo16's bits are its LOP3 (truth table 0x9A on
+    w, 0xFFFF0000, 0x4B008000), whatever the other half holds."""
+    v = np.arange(-(2**15), 2**15, dtype=np.int64)
+    w = (v & 0xFFFF) | (np.random.default_rng(16).permutation(v) & 0xFFFF) << 16
+    bits = np.zeros_like(w)
+    for i in range(32):  # lop3: bit i of the result is bit 4 a + 2 b + c of the table
+        a, b, c = (w >> i) & 1, (0xFFFF0000 >> i) & 1, (0x4B008000 >> i) & 1
+        bits |= ((0x9A >> (4 * a + 2 * b + c)) & 1) << i
+    np.testing.assert_array_equal(bits, (v ^ 0x8000) & 0xFFFF | 0x4B000000)
+    lo = bits.astype(np.uint32).view(np.float32) - np.float32(8421376.0)
+    hi = (v + 0x4B400000).astype(np.uint32).view(np.float32) - MAGIC
+    np.testing.assert_array_equal(lo, v.astype(np.float32))
+    np.testing.assert_array_equal(hi, v.astype(np.float32))
