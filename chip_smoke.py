@@ -24,7 +24,11 @@ Phases, in order (each prints one line, with its seconds):
           BASELINE's LUT set) at the LUT adder's level width (G=2) and G=256,
           and at ARITH_128_MB2 (N=2048, 6 rows, PRIMES with 65537) at a narrow
           merged-round width (G=8) and a wide one (G=1024): the words must be
-          equal (tolerance 0, the arithmetic is exact); prints both times
+          equal (tolerance 0, the arithmetic is exact); prints both times.
+          Then K1's grouping-1 builds (P_1 = X^a - 1, on gen_bsk_multibit's
+          keys) the same way: the tiny k=3 set and TEST_PARAMS at G=5 and
+          37, GATES_128_K3 at g = 1 (g1_fs_test's set) at G=8, 37 and 1024
+          and GATES_TPU at G=1024
   k6      the prime-split blind-rotation kernel (K6: K1's body with the CRT
           fold in place of Garner, one launch per rotation; its tile plan
           printed per width) against its plain torch
@@ -177,7 +181,14 @@ Phases, in order (each prints one line, with its seconds):
           at ARITH_PARAMS (K2) and on chi-squared u32, euclidean u32 and
           box blur u16 at ARITH_128_MB2 (K1), against evaluate_arith;
           noise_validate at GATES_128_K3 over 2^18 samples (0 decision
-          failures) and noise_decompose over 8192; their RESULT lines
+          failures) and noise_decompose over 8192; their RESULT lines.
+          g1_fs_test's A/B at GATES_128_K3, G=1024 AND gates, decrypt-checked:
+          K1 at g = 2, K1 at g = 1 (the tool's run too) and K2 at g = 1 on
+          the same key, ms and rot/s beside their bounds; param_search
+          --measure 3 (its table; K1 at its first three rows with a build)
+          and its model against K1 at the held-out LUT_128_MB2 and
+          GATES_TPU_MB4; then collect_results over the phase's own output,
+          which must find every RESULT, sweep and AES line printed
   cli     python -m helm_tpu_torch.cli --device cuda (default sets), four
           subprocesses started together: the 2-bit adder (with --profile
           DIR: its Chrome trace must name rotate_tiles), the LUT adder and
@@ -258,30 +269,34 @@ OPS_PER_MULADD = 2
 NP = 4  # CRT primes
 
 
-def int_ops(p, G: int) -> int:
-    """Integer operations of one blind rotation of G gates at set p:
-    per step (a mask element, or a group of g of them) and gate, the
-    forward NTTs of the gadget rows and the inverse NTTs of the k+1
+def int_ops(p, G: int, kernel: str = "blind_rotate_mb") -> int:
+    """Integer operations of one blind rotation of G gates at set p by
+    `kernel`: per step (a mask element, or a group of g of them) and gate,
+    the forward NTTs of the gadget rows and the inverse NTTs of the k+1
     components over NP primes, the rows x (2^g-1) x (k+1) x NP x N
-    multiply-adds against the BSK and, for g > 1, the (2^g-1) x (k+1) x
-    NP x N multiply-adds by the subset polynomials."""
+    multiply-adds against the BSK and, where the kernel's word source
+    scales by the subset polynomials (every kernel but K2, K1 at g = 1
+    too: P_1 = X^a - 1), the (2^g-1) x (k+1) x NP x N multiply-adds by
+    them."""
     N, kp1, rows, g = p.N, p.k + 1, p.gadget_rows, p.grouping
     bfly = (rows + kp1) * NP * (N // 2) * int(math.log2(N))
     nv1 = (1 << g) - 1
-    muladd = rows * nv1 * kp1 * NP * N + (nv1 * kp1 * NP * N if g > 1 else 0)
+    subsets = kernel != "blind_rotate_sb"
+    muladd = rows * nv1 * kp1 * NP * N + (nv1 * kp1 * NP * N if subsets else 0)
     return G * (p.n // g) * (OPS_PER_BUTTERFLY * bfly + OPS_PER_MULADD * muladd)
 
 
 def min_bytes(p, G: int, testv_rows: int) -> int:
     """Bytes a blind rotation must move: the BSK, the LWE inputs and the
-    test polynomials read once, the accumulators written once (u32)."""
+    test polynomials read once, the accumulators written once (u32). The
+    same for every word source: K1's key at g = 1 has K2's size."""
     g = p.grouping
     bsk = (p.n // g) * ((1 << g) - 1) * p.gadget_rows * (p.k + 1) * NP * p.N
     return 4 * (bsk + G * (p.n + 1) + testv_rows * p.N + G * (p.k + 1) * p.N)
 
 
-def bound_ms(p, G: int, testv_rows: int) -> tuple[float, str]:
-    t_ops = int_ops(p, G) / INT32_OPS_PER_S
+def bound_ms(p, G: int, testv_rows: int, kernel: str = "blind_rotate_mb") -> tuple[float, str]:
+    t_ops = int_ops(p, G, kernel) / INT32_OPS_PER_S
     t_bytes = min_bytes(p, G, testv_rows) / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -377,6 +392,23 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+class _Tee:
+    """A text stream that writes to `stream` and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.stream.write(s)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
 def _same(out, exp):
     """Engine outputs (bool in gates mode, 0/1 in LUT mode) == expected bits."""
     return {w: bool(v) for w, v in out.items()} == {w: bool(v) for w, v in exp.items()}
@@ -445,20 +477,31 @@ class Smoke:
         for k in self.kernel.values():
             k.update(launches=0, max_abs_err=None, ms=None, plain_ms=None,
                      bound_ms=None, bound_by=None, library_ms=None)
+        #: K1 at grouping 1 (GATES_128_K3 at g = 1, G = 1024; phase k1),
+        #: its launches those at grouping 1 on the main path
+        self.kernel["blind_rotate_mb"]["g1"] = dict(launches=0, ms=None, plain_ms=None, bound_ms=None,
+                                                    bound_by=None)
         self.card = ""
         #: kernel inputs and plain outputs by (set, per-gate test polys), at
         #: the set's widest G: (lwe_in, testv, plain ms, words), so that the
         #: kernels, which compute one function, share them
         self.plain = {}
 
-    def keys_for(self, params, seed):
+    def keys_for(self, params, seed, multibit=False):
+        """(client key, host server key, device server key) of `params`
+        from keygen at `seed`, made once per set name; `multibit`: the BSK
+        from gen_bsk_multibit at any grouping (K1 at g = 1 takes its [n,
+        1, rows, k+1, NP, N] layout, as the reference's g1_fs_test does)."""
         from helm_tpu_torch.fhe import lwe, pbs
-        from helm_tpu_torch.fhe.server_key import gen_server_key
+        from helm_tpu_torch.fhe.server_key import ServerKey, gen_bsk_multibit, gen_ksk, gen_server_key
 
         if params.name not in self.keys:
             t0 = time.perf_counter()
             ck = lwe.keygen(params, seed)
-            sk = gen_server_key(ck, self.device)
+            if multibit:
+                sk = ServerKey(params, *gen_bsk_multibit(ck, self.device), gen_ksk(ck))
+            else:
+                sk = gen_server_key(ck, self.device)
             dsk = pbs.DeviceServerKey.from_host(sk, self.device)
             _sync()
             print(f"[keys] {params.name} seed {seed}: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -487,11 +530,12 @@ class Smoke:
         return (f"helm_tpu_torch/csrc/{{{','.join(KERNELS + PROBE_SOURCES)}}}.cu -> {build.BUILD_DIR.name}/ "
                 f"in {time.perf_counter() - t0:.2f} s")
 
-    def _check_kernel(self, name, label, plain, kernel, cases, timed, detail=None):
+    def _check_kernel(self, name, label, plain, kernel, cases, timed, detail=None, record=None):
         """Hold `kernel` against the plain words word for word on every case
         (params, seed, Gs, per-gate testv, Gs where `plain` runs even when
         another kernel's plain version already ran these inputs, and must
-        agree with it); record the timed case's numbers. `detail(params, G)`
+        agree with it); record the timed case's numbers in `record`
+        (default the kernel's row). `detail(params, G)`
         adds to each width's line. The inputs of a set are drawn once, at
         its widest G, and each narrower G takes their first G rows: every
         gate rotates alone, so the plain words of those rows are the widest
@@ -505,6 +549,7 @@ class Smoke:
 
         worst = 0
         notes = []
+        rec = self.kernel[name] if record is None else record
         for params, seed, gs, per_gate, fresh in cases:
             ck, _, dsk = self.keys_for(params, seed)
             top = max(gs)
@@ -538,7 +583,7 @@ class Smoke:
                         f"{label} != plain at {params.name} G={G}: first differing word "
                         f"{bad}: {int(got.reshape(-1)[bad])} vs {int(ref.reshape(-1)[bad])}"
                     )
-                b_ms, b_by = bound_ms(params, G, tv.shape[0])
+                b_ms, b_by = bound_ms(params, G, tv.shape[0], name)
                 vs = f"{plain_ms:.6f} ms" if plain_ms is not None else f"(rows of its G={x_all.shape[0]} run)"
                 notes.append(
                     f"{params.name} G={G}: {ms:.6f} ms vs plain {vs}, "
@@ -546,9 +591,9 @@ class Smoke:
                 )
                 print(f"[{label.lower()}] {notes[-1]} — equal (tolerance 0)", flush=True)
                 if (params.name, G) == timed:
-                    self.kernel[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        self.kernel[name]["max_abs_err"] = worst
-        assert self.kernel[name]["ms"] is not None, f"{label}: timed shape {timed} not run"
+                    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        self.kernel[name]["max_abs_err"] = max(worst, self.kernel[name]["max_abs_err"] or 0)
+        assert rec["ms"] is not None, f"{label}: timed shape {timed} not run"
         return f"{label} == plain on every shape; " + "; ".join(notes)
 
     def phase_k1(self):
@@ -566,9 +611,37 @@ class Smoke:
         # with its own test polynomial. ARITH_128_MB2 (6
         # rows x 2048 words: 48 KB per decompose block): chi-squared u32's
         # merged rounds, each slot with its group's test polynomial
-        return self._check_kernel(
+        msg = self._check_kernel(
             "blind_rotate_mb", "K1", pbs.blind_rotate_multibit, mb_pbs.blind_rotate_mb,
             self._k1_cases(), ("gates_128_k3", 1024), detail=self._tile("blind_rotate_mb"),
+        )
+        # grouping 1 (P_1 = X^a - 1), on gen_bsk_multibit's keys: the tiny
+        # k=3 set (8 rows), TEST_PARAMS (4 rows, N=64), GATES_128_K3 at g = 1
+        # (g1_fs_test's set and seed) at a narrow, a ragged and the A/B's
+        # width, GATES_TPU (N=1024, 64-bit sums) at G=1024
+        cases = self._k1_g1_cases()
+        for params, seed, *_ in cases:
+            self.keys_for(params, seed, multibit=True)
+        return msg + "; " + self._check_kernel(
+            "blind_rotate_mb", "K1 g=1", pbs.blind_rotate_multibit, mb_pbs.blind_rotate_mb, cases,
+            ("gates_128_k3_g1", 1024), detail=self._tile("blind_rotate_mb"),
+            record=self.kernel["blind_rotate_mb"]["g1"],
+        )
+
+    def _k1_g1_cases(self):
+        """The grouping-1 sets and widths K1 is checked at (phase k1), named
+        apart from phase k2's (a set name keys its inputs and plain words)."""
+        from helm_tpu_torch import params as P
+        from helm_tpu_torch.tools import g1_fs_test
+
+        def k1(p, name):
+            return dataclasses.replace(p, name=name, grouping=1)
+
+        return (
+            (k1(P.TEST_PARAMS_K3, "test_tiny_k3_g1_k1"), 13, (5, 37), False, ()),
+            (k1(P.TEST_PARAMS, "test_params_k1"), 11, (5, 37), False, ()),
+            (g1_fs_test.g1_params(False), 7, (8, 37, 1024), False, ()),
+            (k1(P.GATES_TPU, "gates_tpu_v32_k1"), 2026, (1024,), False, ()),
         )
 
     def _tile(self, kernel):
@@ -1731,7 +1804,32 @@ class Smoke:
         chi-squared u32, euclidean u32 and box blur u16 at ARITH_128_MB2:
         K1), noise_validate at GATES_128_K3 over 2^18 samples and
         noise_decompose over 8192: every output right, 0 decision
-        failures."""
+        failures; g1_fs_test's A/B (`_g1_ab`), param_search with --measure
+        3 and its held-out sets (`_param_search`), and collect_results over
+        the phase's own output, which must find every RESULT, sweep and AES
+        line the phase printed."""
+        out = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(out):
+            msg = self._tools()
+            msg += "; " + self._g1_ab() + "; " + self._param_search()
+        from helm_tpu_torch.tools import collect_results
+
+        text = out.text()
+        with tempfile.TemporaryDirectory() as td:
+            log = os.path.join(td, "tools.log")
+            with open(log, "w") as fh:
+                fh.write(text)
+            got = collect_results.collect([log])
+        lines = text.splitlines()
+        want = {"results": sum(ln.startswith("RESULT {") for ln in lines),
+                "sweeps": sum("rot/s (first call" in ln for ln in lines),
+                "aes": sum(ln.startswith("AES-128 steady-state:") for ln in lines)}
+        for key, n in want.items():
+            assert len(got[key]) == n and n > 0, f"collect_results found {len(got[key])} {key}, the phase printed {n}"
+        return msg + "; collect_results over the phase's output: " + ", ".join(
+            f"{len(got[k])} {k}" for k in want) + ", every one printed"
+
+    def _tools(self):
         import torch
 
         from helm_tpu_torch import params as P
@@ -1779,6 +1877,58 @@ class Smoke:
                                                                    dev, keys))
         return ("every family correct, AES C.1 = " + aes_bench.C1 + " and every block right, every arith "
                 "output = its oracle, 0 noise decision failures (RESULT lines above); " + "; ".join(notes))
+
+    def _g1_ab(self):
+        """The reference's g1_fs_test A/B at GATES_128_K3, G=1024 AND gates:
+        K1 at g = 2 (the set's own key; mb_sweep's line), K1 at g = 1 (the
+        tool, on its gen_bsk_multibit key) and K2 at g = 1 on the same key
+        (the production route of a grouping-1 set): each decrypt-checked,
+        its ms by CUDA events (6 calls after one), rot/s and bound, as a
+        RESULT line."""
+        from helm_tpu_torch import params as P
+        from helm_tpu_torch.ops import mb_pbs, sb_pbs
+        from helm_tpu_torch.tools import g1_fs_test, mb_sweep
+
+        G = 1024
+        p2, p1 = P.GATES_128_K3, g1_fs_test.g1_params(False)
+        ck2, _, dsk2 = self.keys_for(p2, 2024)
+        ck1, _, dsk1 = self.keys_for(p1, 7, multibit=True)
+        notes = []
+        for label, fn, p, ck, dsk in (("K1 g=2", mb_pbs.blind_rotate_mb, p2, ck2, dsk2),
+                                      ("K1 g=1", mb_pbs.blind_rotate_mb, p1, ck1, dsk1),
+                                      ("K2 g=1", sb_pbs.blind_rotate_sb, p1, ck1, dsk1)):
+            x, tv = mb_sweep.inputs(ck, G, self.device)
+            g1_fs_test.check_ands(ck, fn(dsk, x, tv), f"{label} {p.name}")
+            ms, _ = _time_ms(lambda: fn(dsk, x, tv), reps=6)
+            b_ms, b_by = bound_ms(p, G, 1, fn.__name__)
+            res = {"tool": "g1_ab", "rotation": label, "kernel": fn.__name__, "set": p.name, "G": G, "ms": ms,
+                   "rot_s": G * 1e3 / ms, "bound_ms": b_ms, "bound_by": b_by, "card": self.card}
+            print("RESULT " + json.dumps(res), flush=True)
+            notes.append(f"{label} {ms:.3f} ms, {G * 1e3 / ms:.1f} rot/s (bound {b_ms:.3f} ms, {b_by})")
+        # the tools' own lines: g1_fs_test's run and mb_sweep's fs line at g = 2
+        g1_fs_test.run(ck1, dsk1, G, 512)
+        mb_sweep.sweep(dsk2, ck2, "fs", G, [32])
+        return "g1_fs_test A/B at G=1024, decrypt-checked: " + "; ".join(notes)
+
+    def _param_search(self):
+        """param_search's table with --measure 3 (K1 on the first three rows
+        with a build, keys made there), then the model's held-out sets
+        LUT_128_MB2 and GATES_TPU_MB4 with the keys of phases k1 and k4:
+        predicted against measured rot/s (RESULT lines; a miss over 20% is
+        printed, not a failure: the model is an estimate)."""
+        from helm_tpu_torch import params as P
+        from helm_tpu_torch.tools import param_search
+
+        t0 = time.perf_counter()
+        param_search.main(["--measure", "3"])
+        errs = {}
+        for p, seed in ((P.LUT_128_MB2, 2032), (P.GATES_TPU_MB4, 2031)):
+            ck, _, dsk = self.keys_for(p, seed)
+            errs[p.name] = param_search.compare(p, ck, dsk)["err"]
+        far = [name for name, e in errs.items() if abs(e) > 0.2]
+        return (f"param_search --measure 3 and held-out sets ({time.perf_counter() - t0:.2f} s): measured against "
+                f"predicted {', '.join(f'{n} {100 * e:+.1f}%' for n, e in errs.items())}"
+                + (f"; over 20%: {', '.join(far)}" if far else ""))
 
     def phase_cli(self):
         """The CLI in four subprocesses, started together (each pays its own
@@ -1894,6 +2044,7 @@ def main(argv=None) -> int:
         if name in MAIN_PATH:
             for w in wrappers.values():
                 w.launches = 0  # this main-path phase's run starts here
+            mb_pbs.blind_rotate_mb.g1_launches = 0
         t0 = time.perf_counter()
         msg = getattr(smoke, f"phase_{name}")()
         if name in MAIN_PATH:
@@ -1902,7 +2053,10 @@ def main(argv=None) -> int:
                 assert counts[k] > 0, f"main-path phase {name} never launched {k}"
             for k, c in counts.items():
                 smoke.kernel[k]["launches"] += c
-            msg += f"; launches {counts}"
+            g1 = mb_pbs.blind_rotate_mb.g1_launches
+            assert name != "tools" or g1 > 0, "main-path phase tools never launched K1 at grouping 1"
+            smoke.kernel["blind_rotate_mb"]["g1"]["launches"] += g1
+            msg += f"; launches {counts}, K1 at grouping 1 {g1}"
         print(f"[{name}] {msg} ({time.perf_counter() - t0:.2f} s)", flush=True)
     print(json.dumps({"kernels": list(smoke.kernel.values())}))
     if smoke.card:

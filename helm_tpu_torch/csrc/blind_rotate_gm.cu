@@ -77,8 +77,8 @@ extern "C" int helm_blind_rotate_gm(
   Plan L;
   Kernel<Garner, Ladder> kern;
   size_t smem;
-  if (!prepare(S, K, L, kern, smem, select_kernel, consts, G, n, N, k, g, mask_bl, mask_lv, bl,
-               lv, gt, cf, elt))
+  if (!prepare<AccQuarter>(S, K, L, kern, smem, select_kernel, consts, G, n, N,
+                           k, g, mask_bl, mask_lv, bl, lv, gt, cf, elt))
     return (int)cudaErrorInvalidValue;
   const Args args{(uint32_t*)acc,       (const int*)abar,     bsk,
                   (const uint2*)twf,    (const uint2*)twi,    (const uint32_t*)pw,
@@ -97,8 +97,8 @@ extern "C" int helm_blind_rotate_gm_clusters(const uint32_t* consts, int n, int 
   Plan L;
   Kernel<Garner, Ladder> kern;
   size_t smem;
-  if (!prepare(S, K, L, kern, smem, select_kernel, consts, gt, n, N, k, g, mask_bl, mask_lv, bl,
-               lv, gt, cf, elt))
+  if (!prepare<AccQuarter>(S, K, L, kern, smem, select_kernel, consts, gt, n, N,
+                           k, g, mask_bl, mask_lv, bl, lv, gt, cf, elt))
     return (int)cudaErrorInvalidValue;
   return active_clusters(kern, smem, clusters, smem_bytes);
 }

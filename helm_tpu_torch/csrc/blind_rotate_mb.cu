@@ -9,7 +9,12 @@
 // CMux
 //     acc += INTT( sum_r NTT(dec(acc))_r (.) sum_v P_v (.) BSK_v )
 // with P_v = prod_{i in v} (X^{a_i} - 1), over the 4 CRT primes, then
-// Garner back to u32.
+// Garner back to u32. At g = 1 the one subset polynomial is P_1 = X^a - 1
+// (the key from gen_bsk_multibit, [n, 1, rows, k+1, NP, N]): the TPU
+// kernel takes that grouping too, and so does this file. The production
+// route sends grouping-1 sets to K2 (blind_rotate_sb.cu), which decomposes
+// the rotated difference X^a acc - acc instead: a blind rotation of the
+// same input with other noise, so other words.
 //
 // Design. The TPU kernel walks the groups along a sequential grid axis
 // with a tile of gates' accumulators in VMEM and reads each BSK slab once
@@ -30,8 +35,10 @@ namespace {
 
 // The build of rotate_tiles for a shape, or nullptr when there is none:
 // grouping 2 with 4, 6, 8 or 9 gadget rows, grouping 4 with 4 (whose sums
-// never fit u32) — every multi-bit set of params.py (ops/mb_pbs.py
-// K1_BUILDS; no set has grouping 3)
+// never fit u32) — every multi-bit set of params.py (no set has grouping
+// 3) — and grouping 1 with 4, 6 or 8 rows: the grouping-1 sets and
+// GATES_128_K3 at g = 1 (tools/g1_fs_test.py), and the g = 1 rows that
+// tools/param_search.py picks (ops/mb_pbs.py K1_BUILDS)
 template <int GB, int ROWS>
 Kernel<Garner> build_of(bool narrow) {
   return narrow ? rotate_tiles<GB, ROWS, true, AccQuarter, Garner>
@@ -39,6 +46,9 @@ Kernel<Garner> build_of(bool narrow) {
 }
 
 Kernel<Garner> select_kernel(const Shape& S, bool narrow) {
+  if (S.g == 1 && S.rows == 4) return build_of<1, 4>(narrow);
+  if (S.g == 1 && S.rows == 6) return build_of<1, 6>(narrow);
+  if (S.g == 1 && S.rows == 8) return build_of<1, 8>(narrow);
   if (S.g == 2 && S.rows == 4) return build_of<2, 4>(narrow);
   if (S.g == 2 && S.rows == 6) return build_of<2, 6>(narrow);
   if (S.g == 2 && S.rows == 8) return build_of<2, 8>(narrow);
@@ -67,8 +77,8 @@ extern "C" int helm_blind_rotate_mb(
   Plan L;
   Kernel<Garner> kern;
   size_t smem;
-  if (!prepare(S, K, L, kern, smem, select_kernel, consts, G, n, N, k, g, mask_bl, mask_lv, bl,
-               lv, gt, cf, elt))
+  if (!prepare<AccQuarter>(S, K, L, kern, smem, select_kernel, consts, G, n, N,
+                           k, g, mask_bl, mask_lv, bl, lv, gt, cf, elt))
     return (int)cudaErrorInvalidValue;
   const Args args{(uint32_t*)acc,       (const int*)abar,     bsk,
                   (const uint2*)twf,    (const uint2*)twi,    (const uint32_t*)pw,
@@ -89,8 +99,8 @@ extern "C" int helm_blind_rotate_mb_clusters(const uint32_t* consts, int n, int 
   Plan L;
   Kernel<Garner> kern;
   size_t smem;
-  if (!prepare(S, K, L, kern, smem, select_kernel, consts, gt, n, N, k, g, mask_bl, mask_lv, bl,
-               lv, gt, cf, elt))
+  if (!prepare<AccQuarter>(S, K, L, kern, smem, select_kernel, consts, gt, n, N,
+                           k, g, mask_bl, mask_lv, bl, lv, gt, cf, elt))
     return (int)cudaErrorInvalidValue;
   return active_clusters(kern, smem, clusters, smem_bytes);
 }

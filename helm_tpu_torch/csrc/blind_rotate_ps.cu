@@ -75,8 +75,8 @@ extern "C" int helm_blind_rotate_ps(
   Plan L;
   Kernel<CrtFold> kern;
   size_t smem;
-  if (!prepare(S, K, L, kern, smem, select_kernel, consts, G, n, N, k, g, mask_bl, mask_lv, bl,
-               lv, gt, cf, elt))
+  if (!prepare<AccQuarter>(S, K, L, kern, smem, select_kernel, consts, G, n, N,
+                           k, g, mask_bl, mask_lv, bl, lv, gt, cf, elt))
     return (int)cudaErrorInvalidValue;
   CrtFold E;
   for (int i = 0; i < NP; ++i) {
@@ -99,8 +99,8 @@ extern "C" int helm_blind_rotate_ps_clusters(const uint32_t* consts, int n, int 
   Plan L;
   Kernel<CrtFold> kern;
   size_t smem;
-  if (!prepare(S, K, L, kern, smem, select_kernel, consts, gt, n, N, k, g, mask_bl, mask_lv, bl,
-               lv, gt, cf, elt))
+  if (!prepare<AccQuarter>(S, K, L, kern, smem, select_kernel, consts, gt, n, N,
+                           k, g, mask_bl, mask_lv, bl, lv, gt, cf, elt))
     return (int)cudaErrorInvalidValue;
   return active_clusters(kern, smem, clusters, smem_bytes);
 }

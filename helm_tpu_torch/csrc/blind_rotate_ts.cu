@@ -161,8 +161,8 @@ extern "C" int helm_blind_rotate_ts(
   FourStepTC X = make_xf(bfwd, binv, stw, ef4, ts_consts);
   Kernel<Garner, FourStepTC> kern;
   size_t smem;
-  if (!prepare(S, K, L, kern, smem, select_kernel, consts, G, n, N, k, g, mask_bl, mask_lv, bl, lv,
-               gt, cf, elt, &X.staged, &X.nlmax))
+  if (!prepare<AccQuarter>(S, K, L, kern, smem, select_kernel, consts, G, n, N,
+                           k, g, mask_bl, mask_lv, bl, lv, gt, cf, elt, &X.staged, &X.nlmax))
     return (int)cudaErrorInvalidValue;
   const Args args{(uint32_t*)acc,       (const int*)abar,     bsk,
                   (const uint2*)twf,    (const uint2*)twi,    (const uint32_t*)pw,
@@ -181,8 +181,8 @@ extern "C" int helm_blind_rotate_ts_clusters(const uint32_t* consts, int n, int 
   Kernel<Garner, FourStepTC> kern;
   size_t smem;
   int staged, nlmax;
-  if (!prepare(S, K, L, kern, smem, select_kernel, consts, gt, n, N, k, g, mask_bl, mask_lv, bl,
-               lv, gt, cf, elt, &staged, &nlmax))
+  if (!prepare<AccQuarter>(S, K, L, kern, smem, select_kernel, consts, gt, n, N,
+                           k, g, mask_bl, mask_lv, bl, lv, gt, cf, elt, &staged, &nlmax))
     return (int)cudaErrorInvalidValue;
   return active_clusters(kern, smem, clusters, smem_bytes);
 }

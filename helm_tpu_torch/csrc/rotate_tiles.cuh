@@ -2,7 +2,7 @@
 // body, rotate_tiles, for the five blind-rotation kernels of the port.
 // Each includes this header and instantiates the body on four template
 // axes, its word source, epilogue, transform and monomial source:
-//   blind_rotate_mb.cu  K1  multi-bit, additive-identity CMux
+//   blind_rotate_mb.cu  K1  multi-bit, additive-identity CMux (g = 1, 2, 4)
 //                           <AccQuarter, Garner, RegisterPasses, Lookup>
 //   blind_rotate_ps.cu  K6  K1's function, CRT partial-sum fold
 //                           <AccQuarter, CrtFold, RegisterPasses, Lookup>
@@ -57,9 +57,10 @@
 //                   block owns y. The CMux was applied before the
 //                   decomposition, so the product is S_c = sum_r F_r (.)
 //                   BSK_i[r, c], reduced once: no P_v, no power table. (K1's
-//                   function at g = 1 decomposes acc and scales by X^a - 1
-//                   after the product: other words, as signed decomposition
-//                   is not linear.)
+//                   function at g = 1 decomposes acc and scales by P_1 =
+//                   X^a - 1 after the product: a blind rotation of the same
+//                   input with other noise, so other words, as signed
+//                   decomposition is not linear.)
 // Epilogues (step 4), on the N^-1-scaled residues r_i of one coefficient:
 //   Garner   pbs_common.cuh garner, the balanced lift.
 //   CrtFold  the CRT partial-sum fold (fhe/ntt.py crt_fold), the same word.
@@ -176,7 +177,8 @@ struct TcGeo {
 };
 
 // Dynamic shared memory of one block (ops/mb_pbs.py smem_bytes); the power
-// table only where the word source scales by P_v (g > 1)
+// table only where the word source scales by P_v (Src::kSubsets: K1 at
+// every grouping, g = 1 too)
 struct SmemLayout {
   size_t ring, bar, rows, accq, twf, twi, pw, swz, ab, total;
   __host__ __device__ SmemLayout(const Shape& S, int gt, int chunk, size_t elt, bool subsets) {
@@ -839,13 +841,14 @@ struct Launch {
 // Checks the arguments and fills S, K, L and the kernel (select(S,
 // narrow): the file's build for the shape, or nullptr); false when the
 // kernels cannot take them, or when the BSK's element size elt is not the
-// one the shape's sums call for. The layout stages the power table for
-// g > 1 (AccQuarter), not for g = 1 (RotDiffQuarter). For a build that
+// one the shape's sums call for. The layout stages the power table where
+// the file's word source Src scales by P_v (AccQuarter, g = 1 too), not for
+// RotDiffQuarter. For a build that
 // carries FourStepTC, *staged is the most directions of its matrices (2,
 // 1, 0) whose layout fits (ops/mb_pbs.py staged_mats) and *nlmax its limb
 // planes: the largest prime's limb_count. A build that carries Ladder adds
 // its step's monomials.
-template <class Epi, class... C>
+template <class Src, class Epi, class... C>
 bool prepare(Shape& S, Consts& K, Plan& L, Kernel<Epi, C...>& kern, size_t& smem,
              Kernel<Epi, C...> (*select)(const Shape&, bool), const uint32_t* consts, int G,
              int n, int N, int k, int g, int mask_bl, int mask_lv, int bl, int lv, int gt, int cf,
@@ -867,7 +870,7 @@ bool prepare(Shape& S, Consts& K, Plan& L, Kernel<Epi, C...>& kern, size_t& smem
   L.gs = 1;
   while (L.gs < gt && S.kp1 * cf * L.gs * 2 <= TPB) L.gs *= 2;
   L.chunk = nv1 * S.rows * S.kp1 * cf;
-  const SmemLayout lay(S, gt, L.chunk, narrow ? 2 : 4, g > 1);
+  const SmemLayout lay(S, gt, L.chunk, narrow ? 2 : 4, Src::kSubsets);
   smem = lay.total;
   if constexpr ((std::is_same<C, Ladder>::value || ...))
     smem += (size_t)gt * g * N * 2;  // the step's monomials [gt, g, N] u16 after the rest

@@ -30,10 +30,21 @@ def save_client_key(path: str, ck: ClientKey) -> None:
     )
 
 
-def load_client_key(path: str) -> ClientKey:
+def _params(z, params):
+    """The set a key file names: `params` when given (a set outside
+    ALL_PARAMS, such as a derived one), which must carry that name."""
+    name = str(z["params"])
+    if params is None:
+        return ALL_PARAMS[name]
+    if params.name != name:
+        raise ValueError(f"key file is for {name!r}, not {params.name!r}")
+    return params
+
+
+def load_client_key(path: str, params=None) -> ClientKey:
     z = np.load(path, allow_pickle=False)
     assert str(z["kind"]) == "client", "not a client key file"
-    params = ALL_PARAMS[str(z["params"])]
+    params = _params(z, params)
     return ClientKey(params, z["lwe_key"], z["glwe_key"], make_rng())
 
 
@@ -51,10 +62,10 @@ def save_server_key(path: str, sk: ServerKey) -> None:
     )
 
 
-def load_server_key(path: str) -> ServerKey:
+def load_server_key(path: str, params=None) -> ServerKey:
     z = np.load(path, allow_pickle=False)
     assert str(z["kind"]) == "server", "not a server key file"
-    params = ALL_PARAMS[str(z["params"])]
+    params = _params(z, params)
     want = np.asarray(primes_for(params.N), dtype=np.uint32)
     if "primes" in z.files:
         got = z["primes"]

@@ -147,9 +147,12 @@ def blind_rotate(dsk: DeviceServerKey, lwe_in: torch.Tensor, testv: torch.Tensor
     primes_col = device_tables(N, str(lwe_in.device))["primes_col"]
     abar = ops.mod_switch(lwe_in[:, :n], N)
     acc = initial_acc(p, lwe_in, testv)
+    # [n, rows, k+1, NP, N]; gen_bsk_multibit's [n, 1, rows, ...] holds the same
+    shape = (n, rows, p.k + 1, -1, N)
+    bsk, bsk_sh = dsk.bsk_ntt.reshape(shape), dsk.bsk_ntt_sh.reshape(shape)
     for i in range(n):
-        bsk_i = dsk.bsk_ntt[i].to(torch.int64)
-        bsk_sh_i = dsk.bsk_ntt_sh[i].to(torch.int64)
+        bsk_i = bsk[i].to(torch.int64)
+        bsk_sh_i = bsk_sh[i].to(torch.int64)
         rot = ops.negacyclic_rotate(acc, abar[:, i, None], N)
         diff = (rot - acc) & M32
         d = decompose_glwe(p, diff)
@@ -224,9 +227,13 @@ def _blind_rotate_mb(dsk, lwe_in, testv, fold, fwd=None, inv=None, order=None):
     abar = ops.mod_switch(lwe_in[:, :n], N)
     acc = initial_acc(p, lwe_in, testv)
     a_groups = abar.reshape(G, groups, g)
+    # [n/g, 2^g-1, rows, k+1, NP, N]; a single-bit key [n, rows, k+1, NP,
+    # N] (gen_bsk) is that at g = 1, the same GGSW(s_i)
+    shape = (groups, (1 << g) - 1, rows, p.k + 1, -1, N)
+    bsk, bsk_sh = dsk.bsk_ntt.reshape(shape), dsk.bsk_ntt_sh.reshape(shape)
     for j in range(groups):
-        bsk_j = order(dsk.bsk_ntt[j]).to(torch.int64)
-        bsk_sh_j = order(dsk.bsk_ntt_sh[j]).to(torch.int64)
+        bsk_j = order(bsk[j]).to(torch.int64)
+        bsk_sh_j = order(bsk_sh[j]).to(torch.int64)
         pv = [None] + [order(x) for x in subset_polys(p, a_groups[:, j])[1:]]
         # E[r, c] = sum_{v>=1} P_v (.) BSK_v[r, c] for every (row, component)
         # at once: [G, rows, k+1, NP, N]; the empty subset is never keyed

@@ -76,8 +76,8 @@ def blind_rotate_gm(
     p = dsk.params
     if p.grouping < 2:
         raise ValueError(
-            f"{p.name}: grouping {p.grouping}; K3 is a multi-bit kernel "
-            "(grouping 1 is the single-bit kernel's, ops/sb_pbs.py)"
+            f"{p.name}: grouping {p.grouping}; K3 has no grouping-1 build "
+            "(grouping-1 sets take K2, ops/sb_pbs.py; K1 takes them too)"
         )
     if lwe_in.device.type == "cpu":
         return pbs.blind_rotate_ladder(dsk, lwe_in, testv)

@@ -1,8 +1,9 @@
 """Multi-bit blind rotation on Hopper, and the bootstrap dispatcher.
 
 Counterpart of `helm_tpu/ops/mxu_pbs.py`: `blind_rotate_mb` replaces the
-Pallas kernel `blind_rotate_fs_mb` (:2706) with the hand-written CUDA
-kernel in `csrc/blind_rotate_mb.cu`, `mb_server_key` replaces the BSK
+Pallas kernel `blind_rotate_fs_mb` (:2706, which takes grouping 1 too)
+with the hand-written CUDA kernel in `csrc/blind_rotate_mb.cu`,
+`mb_server_key` replaces the BSK
 layout `mxu_server_key_fs` (:1954, cached per key as `_layout_cache`
 :1602 does), and `bootstrap` replaces `bootstrap_mxu` (:2839): grouping-1
 sets go to the single-bit kernel K2 (`ops/sb_pbs.py`), the others to the
@@ -69,14 +70,16 @@ CHUNK_BYTES = 24 * 1024
 SWIZZLE = (25, 31, 21, 22, 11, 9, 26, 18, 8)
 
 
-#: (grouping, gadget rows) that K1 and K6 have a build for
-#: (blind_rotate_mb.cu and blind_rotate_ps.cu select_kernel): every
-#: multi-bit set of params.py (none has grouping 3)
-K1_BUILDS = frozenset({(2, 4), (2, 6), (2, 8), (2, 9), (4, 4)})
-#: those of K4 and K3 (blind_rotate_ts.cu and blind_rotate_gm.cu
-#: select_kernel): K1's
-K4_BUILDS = K1_BUILDS
-K3_BUILDS = K1_BUILDS
+#: (grouping, gadget rows) that K6, K4 and K3 have a build for
+#: (blind_rotate_{ps,ts,gm}.cu select_kernel): every multi-bit set of
+#: params.py (none has grouping 3)
+K6_BUILDS = frozenset({(2, 4), (2, 6), (2, 8), (2, 9), (4, 4)})
+K4_BUILDS = K6_BUILDS
+K3_BUILDS = K6_BUILDS
+#: those of K1 (blind_rotate_mb.cu select_kernel): K6's, and grouping 1
+#: with 4, 6 or 8 rows (GATES_TPU, GATES_128_K3 at g = 1 in
+#: tools/g1_fs_test.py, the g = 1 rows tools/param_search.py picks)
+K1_BUILDS = K6_BUILDS | {(1, 4), (1, 6), (1, 8)}
 #: (grouping, gadget rows) that K2 has a build for (blind_rotate_sb.cu
 #: select_kernel): every grouping-1 set of params.py, and the tiny k=3 one
 #: of chip_smoke.py's phase k2
@@ -169,13 +172,14 @@ def _up(x: int, a: int = 16) -> int:
     return -(-x // a) * a
 
 
-def _base_bytes(p, gt: int, chunk: int) -> int:
+def _base_bytes(p, gt: int, chunk: int, kernel: str) -> int:
     N, rows, kp1 = p.N, p.gadget_rows, p.k + 1
     elt = 2 if _narrow(p) else 4
     ring = STAGES * ((1 << p.grouping) - 1) * rows * kp1 * chunk * elt
+    subsets = kernel != "blind_rotate_sb"  # the word source scales by P_v
     return (
         _up(ring, 128) + _up(STAGES * 8) + rows * gt * N * 4 + kp1 * gt * (N // 4) * 4
-        + 2 * N * 8 + (2 * N * 4 if p.grouping > 1 else 0) + _up(N) + MAX_TILE * 4 * 4
+        + 2 * N * 8 + (2 * N * 4 if subsets else 0) + _up(N) + MAX_TILE * 4 * 4
     )
 
 
@@ -197,7 +201,7 @@ def staged_mats(p, gt: int, chunk: int) -> int:
     shared memory: both (2), the forward one (1) or none (0), the most that
     fit SMEM_LIMIT; the rest are read from L2 (csrc/rotate_tiles.cuh
     `prepare` makes the same choice)."""
-    base = _base_bytes(p, gt, chunk)
+    base = _base_bytes(p, gt, chunk, "blind_rotate_ts")
     return next((s for s in (2, 1) if base + tc_bytes(p, gt, s) <= SMEM_LIMIT), 0)
 
 
@@ -207,12 +211,13 @@ def smem_bytes(p, gt: int, chunk: int, kernel: str = "blind_rotate_mb") -> int:
     N] u32 (gadget rows, then the k+1 products in place), its quarter of
     the accumulators [k+1, gt, N/4] u32, the twiddles of both directions
     (u32 pairs: pass-ordered, or K4's twists), the power table [2N] u32
-    (only for grouping > 1: K2 scales by no subset polynomial; K3 stages
-    it unread and builds its monomials by the bit ladder), the
-    swizzle [N] u8 and the group's a_i [MAX_TILE, 4] i32; for K4 (`kernel`
+    (for every kernel whose word source scales by P_v, K1 at grouping 1
+    too; not for K2, blind_rotate_sb, which scales by no subset
+    polynomial; K3 stages it unread and builds its monomials by the bit
+    ladder), the swizzle [N] u8 and the group's a_i [MAX_TILE, 4] i32; for K4 (`kernel`
     blind_rotate_ts) `tc_bytes` more (`TcLayout`), for K3 (blind_rotate_gm)
     the step's monomials [gt, g, N] u16."""
-    base = _base_bytes(p, gt, chunk)
+    base = _base_bytes(p, gt, chunk, kernel)
     if kernel == "blind_rotate_ts":
         return base + tc_bytes(p, gt, staged_mats(p, gt, chunk))
     if kernel == "blind_rotate_gm":
@@ -418,9 +423,9 @@ def check_inputs(dsk: pbs.DeviceServerKey, lwe_in, testv, what: str) -> None:
 
 
 def check_build(p, builds, what: str) -> None:
-    """Raise unless `builds` (K1_BUILDS, K2_BUILDS, K4_BUILDS, K3_BUILDS)
-    holds p's (grouping, gadget rows): the kernel file has no template
-    build for another."""
+    """Raise unless `builds` (K1_BUILDS, K2_BUILDS, K6_BUILDS, K4_BUILDS,
+    K3_BUILDS) holds p's (grouping, gadget rows): the kernel file has no
+    template build for another."""
     if (p.grouping, p.gadget_rows) not in builds:
         raise ValueError(
             f"{p.name}: {what} has no build for grouping {p.grouping} with {p.gadget_rows} gadget rows"
@@ -465,16 +470,20 @@ def rotate_tiles(kernel: str, dsk: pbs.DeviceServerKey, lwe_in: torch.Tensor, te
 def blind_rotate_mb(
     dsk: pbs.DeviceServerKey, lwe_in: torch.Tensor, testv: torch.Tensor
 ) -> torch.Tensor:
-    """Multi-bit blind rotation [G, n+1] words -> [G, k+1, N] words.
+    """Multi-bit blind rotation [G, n+1] words -> [G, k+1, N] words, at
+    any grouping K1 has a build for, 1 included: there the one subset
+    polynomial is P_1 = X^a - 1 and the key is `gen_bsk_multibit`'s [n, 1,
+    rows, k+1, NP, N] (`gen_bsk`'s [n, rows, k+1, NP, N] holds the same
+    GGSW(s_i)). At grouping 1 this is a blind rotation of the same input
+    as K2's (`sb_pbs.blind_rotate_sb`, which decomposes the rotated
+    difference) with other noise, so other words; `blind_rotation` still
+    routes grouping-1 sets to K2, as the reference's `bootstrap_mxu`
+    does.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (`blind_rotate_mb.launches` counts the launches)."""
+    (`blind_rotate_mb.launches` counts the launches, `g1_launches` those
+    at grouping 1)."""
     p = dsk.params
-    if p.grouping < 2:
-        raise ValueError(
-            f"{p.name}: grouping 1 is the single-bit kernel's (ops/sb_pbs.py); "
-            "K1 computes another function there"
-        )
     if lwe_in.device.type == "cpu":
         return pbs.blind_rotate_multibit(dsk, lwe_in, testv)
     if lwe_in.device.type != "cuda":
@@ -483,10 +492,13 @@ def blind_rotate_mb(
     check_build(p, K1_BUILDS, "K1")
     out = rotate_tiles("blind_rotate_mb", dsk, lwe_in, testv)
     blind_rotate_mb.launches += 1
+    if p.grouping == 1:
+        blind_rotate_mb.g1_launches += 1
     return out
 
 
 blind_rotate_mb.launches = 0
+blind_rotate_mb.g1_launches = 0
 
 
 #: the multi-bit kernel when HELM_TPU_MB_KERNEL does not name one

@@ -30,7 +30,7 @@ import torch
 from ..fhe import pbs
 from ..fhe.modring import NUM_PRIMES
 from ..fhe.ntt import crt_constants
-from .mb_pbs import K1_BUILDS, check_build, check_inputs, rotate_tiles
+from .mb_pbs import K6_BUILDS, check_build, check_inputs, rotate_tiles
 
 
 def crt_args(N: int) -> tuple:
@@ -55,15 +55,15 @@ def blind_rotate_ps(
     p = dsk.params
     if p.grouping < 2:
         raise ValueError(
-            f"{p.name}: grouping {p.grouping}; K6 is a multi-bit kernel "
-            "(grouping 1 is the single-bit kernel's, ops/sb_pbs.py)"
+            f"{p.name}: grouping {p.grouping}; K6 has no grouping-1 build "
+            "(grouping-1 sets take K2, ops/sb_pbs.py; K1 takes them too)"
         )
     if lwe_in.device.type == "cpu":
         return pbs.blind_rotate_prime_split(dsk, lwe_in, testv)
     if lwe_in.device.type != "cuda":
         raise NotImplementedError(f"blind_rotate_ps: no kernel for {lwe_in.device}")
     check_inputs(dsk, lwe_in, testv, "blind_rotate_ps")
-    check_build(p, K1_BUILDS, "K6")
+    check_build(p, K6_BUILDS, "K6")
     out = rotate_tiles("blind_rotate_ps", dsk, lwe_in, testv, crt_args(p.N))
     blind_rotate_ps.launches += 1
     return out

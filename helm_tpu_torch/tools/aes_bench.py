@@ -143,12 +143,7 @@ def run(env, device, keys=None) -> dict:
     dt = time.time() - t0
     per = dt / (B or 1)
     backend = route(pset, device)
-    print(
-        f"AES-128 steady-state: {dt:.2f}s"
-        + (f" for {B} blocks = {per:.2f}s/block" if B else "/block")
-        + f" ({pset.name}, backend={backend}, fused={e.fused})",
-        flush=True,
-    )
+    print(steady_line(dt, B, pset.name, backend, e.fused), flush=True)
     out = e.decrypt_outputs(w2)
     outs = out if isinstance(out, list) else [out]
     cts = [ciphertext(o) for o in outs]
@@ -157,6 +152,13 @@ def run(env, device, keys=None) -> dict:
     print(f"block 0: {cts[0].hex()}", flush=True)
     return {"correct": ok, "steady_s": dt, "per_block_s": per, "first_s": first, "fused": e.fused,
             "ciphertexts": [c.hex() for c in cts], "params": pset.name, "backend": backend, "batch": B}
+
+
+def steady_line(dt: float, B: int, pset: str, backend: str, fused: bool) -> str:
+    """The steady-state line (tools/collect_results.py reads it): `dt`
+    seconds for B blocks (B = 0: one unbatched block)."""
+    return (f"AES-128 steady-state: {dt:.2f}s" + (f" for {B} blocks = {dt / B:.2f}s/block" if B else "/block")
+            + f" ({pset}, backend={backend}, fused={fused})")
 
 
 def main(argv=None, env=None) -> int:

@@ -25,17 +25,24 @@ the passes.
 
     python -m helm_tpu_torch.tools.k1_phases [mb|ts]
 
-at the sets and widths of `WIDTHS`.
+at the sets, groupings and widths of `WIDTHS` (K4 skips grouping 1, which
+it has no build for). Each width also prints a `RESULT {json}` line with
+its clocks by phase, which tools/collect_results.py gathers
+and tools/param_search.py fits its cost model to.
 
 Inputs are `mb_sweep.inputs` (G AND pre-images, the gates test
-polynomial); keys from a fixed seed. Needs nvcc and a card.
+polynomial); keys from a fixed seed (at grouping 1 `gen_server_key`'s
+single-bit key, which holds the same GGSW(s_i) as `gen_bsk_multibit`'s).
+Needs nvcc and a card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
 import subprocess
 import sys
+from dataclasses import replace
 from pathlib import Path
 
 import torch
@@ -54,8 +61,17 @@ PHASES = {
     "ts": ("decompose+stages+limbs", "fwd product", "products", "inv product", "cluster sync 1",
            "garner", "cluster sync 2"),
 }
-#: (set, widths) the tool runs
-WIDTHS = (("GATES_128_K3", (8, 64, 1024)), ("LUT_128_K2", (2, 256)), ("ARITH_128_MB2", (8, 1024)))
+#: (set, grouping, widths) the tool runs: the sets at their own grouping,
+#: and GATES_128_K3 at grouping 1 (tools/g1_fs_test.py's set)
+WIDTHS = (("GATES_128_K3", 2, (8, 64, 1024)), ("LUT_128_K2", 2, (2, 256)), ("ARITH_128_MB2", 2, (8, 1024)),
+          ("GATES_128_K3", 1, (1024,)))
+
+
+def width_params(set_name: str, grouping: int) -> P.TfheParams:
+    """The set `set_name` of params.py at `grouping` (named with `_g1` at
+    grouping 1 when that is not its own, as tools/g1_fs_test.py names it)."""
+    p = getattr(P, set_name)
+    return p if p.grouping == grouping else replace(p, name=f"{p.name}_g{grouping}", grouping=grouping)
 
 _SETUP = ("cluster.sync();  // every block's quarter is in place\n",
           "  const bool rec_ = threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0;\n"
@@ -135,6 +151,10 @@ def _instrumented_library(kernel: str) -> ctypes.CDLL:
 
 
 def main(argv=None) -> int:
+    """One instrumented rotation per width (after an untimed one) of K1
+    (mb) or K4 (ts); prints the tool's line and a RESULT line per width:
+    set (`width_params`' name), grouping, G, gt, ms (CUDA events), groups
+    and `clocks`, thread 0's clocks per group by phase (`PHASES[kernel]`)."""
     kernel = (argv if argv is not None else sys.argv[1:] or ["mb"])[0]
     name = f"blind_rotate_{kernel}"
     wrapper = {"mb": mb_pbs.blind_rotate_mb, "ts": ts_pbs.blind_rotate_ts}[kernel]
@@ -153,29 +173,40 @@ def main(argv=None) -> int:
         return rotate
 
     build.entry = patched
-    clk = (ctypes.c_ulonglong * 16)()
-    for set_name, widths in WIDTHS:
-        p = getattr(P, set_name)
-        ck = lwe.keygen(p, 2024)
-        dsk = pbs.DeviceServerKey.from_host(gen_server_key(ck, "cuda"), "cuda")
-        for G in widths:
-            x, tv = inputs(ck, G, "cuda")
-            wrapper(dsk, x, tv)
-            torch.cuda.synchronize()
-            lib.helm_k1_clocks(clk, 1)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            wrapper(dsk, x, tv)
-            end.record()
-            torch.cuda.synchronize()
-            lib.helm_k1_clocks(clk, 0)
-            total = sum(clk[i] for i in range(7))
-            t = mb_pbs.plan_for(dsk, G, name)
-            shares = ", ".join(f"{n} {100 * clk[i] / total:.1f}%" for i, n in enumerate(PHASES[kernel]))
-            print(f"[k1_phases] {kernel} {p.name} G={G} gt={t.gt}: {start.elapsed_time(end):.3f} ms, "
-                  f"{total / (p.n // p.grouping):.0f} clocks per group: {shares}; of which ring waits "
-                  f"{100 * clk[9] / total:.1f}%, thread 0's products {100 * clk[10] / total:.1f}%, its chunk "
-                  f"barrier waits {100 * clk[11] / total:.1f}%", flush=True)
+    try:
+        clk = (ctypes.c_ulonglong * 16)()
+        for set_name, grouping, gs in WIDTHS:
+            if kernel == "ts" and grouping == 1:
+                continue  # K4 has no grouping-1 build
+            p = width_params(set_name, grouping)
+            ck = lwe.keygen(p, 2024)
+            dsk = pbs.DeviceServerKey.from_host(gen_server_key(ck, "cuda"), "cuda")
+            for G in gs:
+                x, tv = inputs(ck, G, "cuda")
+                wrapper(dsk, x, tv)
+                torch.cuda.synchronize()
+                lib.helm_k1_clocks(clk, 1)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                wrapper(dsk, x, tv)
+                end.record()
+                torch.cuda.synchronize()
+                lib.helm_k1_clocks(clk, 0)
+                total = sum(clk[i] for i in range(7))
+                t = mb_pbs.plan_for(dsk, G, name)
+                groups = p.n // p.grouping
+                ms = start.elapsed_time(end)
+                shares = ", ".join(f"{n} {100 * clk[i] / total:.1f}%" for i, n in enumerate(PHASES[kernel]))
+                print(f"[k1_phases] {kernel} {p.name} G={G} gt={t.gt}: {ms:.3f} ms, "
+                      f"{total / groups:.0f} clocks per group: {shares}; of which ring waits "
+                      f"{100 * clk[9] / total:.1f}%, thread 0's products {100 * clk[10] / total:.1f}%, its chunk "
+                      f"barrier waits {100 * clk[11] / total:.1f}%", flush=True)
+                res = {"tool": "k1_phases", "kernel": kernel, "set": p.name, "grouping": p.grouping, "G": G,
+                       "gt": t.gt, "ms": ms, "groups": groups,
+                       "clocks": {n: clk[i] / groups for i, n in enumerate(PHASES[kernel])}}
+                print("RESULT " + json.dumps(res), flush=True)
+    finally:
+        build.entry = entry  # the process's other kernels load as before
     return 0
 
 

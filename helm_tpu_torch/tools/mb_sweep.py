@@ -59,13 +59,17 @@ def rotation(layout: str):
     return blind_rotate_mb
 
 
-def inputs(ck, G: int, device):
-    """The original's rotation inputs: G AND-gate pre-images from a numpy
-    seed of 0, and the gates test polynomial."""
-    p = ck.params
+def and_bits(G: int):
+    """The original's input bits: two rows of G from a numpy seed of 0."""
     rng = np.random.default_rng(0)
-    b1 = rng.integers(0, 2, G).astype(bool)
-    b2 = rng.integers(0, 2, G).astype(bool)
+    return rng.integers(0, 2, G).astype(bool), rng.integers(0, 2, G).astype(bool)
+
+
+def inputs(ck, G: int, device):
+    """The original's rotation inputs: G AND-gate pre-images of
+    `and_bits(G)`, and the gates test polynomial."""
+    p = ck.params
+    b1, b2 = and_bits(G)
     lin = (lwe.encrypt(ck, lwe.encode_bool(b1)) + lwe.encrypt(ck, lwe.encode_bool(b2))).astype(np.uint32)
     lin[:, p.n] += np.uint32((-(1 << 29)) % (1 << 32))
     return words(lin, device), words(pbs.gates_test_poly(p), device)
@@ -93,12 +97,14 @@ def sweep(dsk, ck, layout: str, G: int, gts) -> list[float]:
         sync()
         rate = G * ITERS / (time.time() - t0)
         rates.append(rate)
-        print(
-            f"{layout} gt={gt} (ignored: the Hopper kernels choose their own tiles): "
-            f"{rate:.1f} rot/s (first call {first:.1f}s)",
-            flush=True,
-        )
+        print(sweep_line(layout, gt, rate, first), flush=True)
     return rates
+
+
+def sweep_line(layout: str, gt: int, rate: float, first: float) -> str:
+    """The line a sweep prints per GTS value (tools/collect_results.py reads it)."""
+    return (f"{layout} gt={gt} (ignored: the Hopper kernels choose their own tiles): "
+            f"{rate:.1f} rot/s (first call {first:.1f}s)")
 
 
 def main(argv=None, env=None) -> int:

@@ -311,8 +311,10 @@ def test_refbound_equals_the_reference(name):
     ("helm_tpu_torch.tools.noise_validate", ["--device", "cpu"],
      {"PSET": "TEST_NOISY_GATES_MB", "SAMPLES": "32", "G": "32"}, 'RESULT {"params": "test_noisy_gates_mb"'),
     ("helm_tpu_torch.fhe.security", [], {}, "arith_128_mb2      glwe"),
+    ("helm_tpu_torch.tools.g1_fs_test", ["--device", "cpu"], {}, "decrypt-verified ok"),
+    ("helm_tpu_torch.tools.collect_results", ["benchmarks/netlists/2-bit-adder.v"], {}, "}"),
 ], ids=["expand8_probe", "splat_repro", "liveset_harness", "ptw_probe", "family_bench", "chi2_bench",
-        "noise_validate", "security"])
+        "noise_validate", "security", "g1_fs_test", "collect_results"])
 def test_tools_in_a_fresh_interpreter_import_neither(tmp_path, module, argv, env, last):
     """The ported tools (`python -m <module> <argv>` with their env knobs,
     as runpy runs -m) in a fresh interpreter on the CPU: exit code 0, the

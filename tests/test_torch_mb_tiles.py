@@ -612,7 +612,7 @@ def test_cluster_slots_holds_the_plan_to_the_kernel(keys, monkeypatch, name, off
         def call(*args):
             seen.append(args[11])
             args[12]._obj.value = 30
-            args[13]._obj.value = mb_pbs.smem_bytes(p, args[9], args[10]) + off
+            args[13]._obj.value = mb_pbs.smem_bytes(p, args[9], args[10], kernel) + off
             return 0
 
         return call

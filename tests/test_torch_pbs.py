@@ -171,12 +171,13 @@ def test_test_polys_are_the_reference_ones():
 def test_cuda_g1_raises_naming_k2(keys):
     """Off the CPU the single-bit wrapper launches its kernel or raises: it
     never falls back to the plain path (a meta tensor stands in for a
-    device with no kernel). K1 refuses grouping-1 keys on any device."""
+    device with no kernel). K1 takes grouping-1 keys too (P_1 = X^a - 1),
+    and off the CPU it also launches or raises."""
     _, _, tdsk = keys["g1"]
     x = torch.zeros((2, tdsk.params.n + 1), dtype=torch.int64, device="meta")
     with pytest.raises(NotImplementedError, match="blind_rotate_sb"):
         sb_pbs.blind_rotate_sb(tdsk, x, x)
-    with pytest.raises(ValueError, match="grouping 1"):
+    with pytest.raises(NotImplementedError, match="blind_rotate_mb"):
         mb_pbs.blind_rotate_mb(tdsk, x, x)
     with pytest.raises(ValueError, match="grouping 2"):
         sb_pbs.blind_rotate_sb(keys["mb2"][2], x, x)
