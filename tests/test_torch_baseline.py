@@ -13,6 +13,7 @@ from pathlib import Path
 import pytest
 
 from helm_tpu_torch.tools import verify_baseline
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

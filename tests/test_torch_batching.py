@@ -22,6 +22,7 @@ from helm_tpu_torch.circuit.plan import binarize, build_plan
 from helm_tpu_torch.circuit.verilog import read_verilog_file
 from helm_tpu_torch.engines.boolean import BooleanEngine
 from helm_tpu_torch.ops import mb_pbs
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 SLOTS = 30
 

@@ -23,6 +23,7 @@ from helm_tpu.refbound import bounds_for_netlist
 from helm_tpu_torch import bench
 from helm_tpu_torch.engines.boolean import BooleanEngine
 from helm_tpu_torch.ops import mb_pbs
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 ADDER = "benchmarks/netlists/2-bit-adder.v"

@@ -18,6 +18,7 @@ from helm_tpu.circuit.graph import Circuit
 from helm_tpu.circuit.verilog import read_verilog_file
 from helm_tpu.io import csv_io
 from helm_tpu_torch import cli
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 GOLDEN_IN = "benchmarks/test-cases/2-bit-adder.inputs.csv"
 ADDER = ["-v", "benchmarks/netlists/2-bit-adder.v", "-i", GOLDEN_IN]

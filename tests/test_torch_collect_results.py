@@ -14,23 +14,14 @@ import subprocess
 import sys
 
 import pytest
-import torch
 
 from helm_tpu_torch.tools import aes_bench, collect_results, mb_sweep
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 RESULTS = [{"family": "c880-like", "s_per_vector": 0.1246, "correct": True},
            {"tool": "k1_phases", "kernel": "mb", "set": "gates_128_k3_g1", "G": 1024, "clocks": {"garner": 3.5}}]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread, as the other in-process port tests."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(old)
 
 
 def _log(tmp_path, name, lines):

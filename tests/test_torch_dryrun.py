@@ -5,21 +5,8 @@ adder and chi-squared u8) print their four OK lines. About 50 s alone on
 the CPU: every shard runs its own plain blind rotation.
 """
 
-import pytest
-import torch
-
 from helm_tpu_torch.parallel.dryrun import dryrun_multichip
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: these tests run many small plain-version ops,
-    which a pool of threads slows down (alone, and more so beside other
-    test processes on the same cores)."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(old)
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 
 def test_dryrun_multichip_on_four_virtual_shards(capsys):

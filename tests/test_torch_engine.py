@@ -25,6 +25,7 @@ from helm_tpu_torch.circuit.verilog import Netlist
 from helm_tpu_torch.fhe.lwe import client_key_from_reference
 from helm_tpu_torch.fhe.ntt import to_host
 from helm_tpu_torch.fhe.server_key import server_key_from_reference
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 #: k=1 multi-bit: the reference's compile time grows with k (the k=3 path
 #: is held word for word in test_torch_pbs.py and on the card)

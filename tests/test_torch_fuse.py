@@ -32,6 +32,7 @@ from helm_tpu_torch.fhe.ntt import to_host
 from helm_tpu_torch.fhe.server_key import server_key_from_reference
 from helm_tpu_torch.io import csv_io
 from helm_tpu_torch.params import from_reference
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 NETLISTS = "benchmarks/netlists"
 SETS = {"gates": (RP.TEST_PARAMS, 22), "lut": (RP.TEST_PARAMS_LUT, 23)}

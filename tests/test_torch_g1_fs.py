@@ -35,20 +35,11 @@ from helm_tpu_torch.fhe.ntt import to_host, words
 from helm_tpu_torch.fhe.server_key import server_key_from_reference
 from helm_tpu_torch.ops import build, mb_pbs, sb_pbs
 from helm_tpu_torch.tools import g1_fs_test
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 #: the reference's g1_fs_test set on the CPU, and TEST_PARAMS (already g = 1)
 RK3_G1 = dataclasses.replace(RP.TEST_PARAMS_K3, name="test_tiny_k3_g1", grouping=1)
 SETS = {"k3_g1": (RK3_G1, 61), "test_params": (RP.TEST_PARAMS, 62)}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: many small plain-version ops run slower on a
-    pool of threads beside the other test processes."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(old)
 
 
 @pytest.fixture(scope="module")

@@ -29,6 +29,7 @@ from helm_tpu_torch.fhe.ntt import to_host, words
 from helm_tpu_torch.fhe.server_key import server_key_from_reference
 from helm_tpu_torch.ops import gm_pbs, mb_pbs, ps_pbs, ts_pbs
 from helm_tpu_torch.tools import mb_sweep
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 SETS = {"k3": (RP.TEST_PARAMS_K3, 61), "mb4": (RP.TEST_PARAMS_MB4, 62)}
 

@@ -18,6 +18,7 @@ from helm_tpu.io import tfhers_interop as ref
 from helm_tpu_torch import params as P
 from helm_tpu_torch.fhe import lwe
 from helm_tpu_torch.io import tfhers_interop as port
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 SETS = ["test_tiny", "gates_128_k3"]

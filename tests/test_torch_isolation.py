@@ -34,6 +34,7 @@ from helm_tpu_torch.circuit import plan, verilog
 from helm_tpu_torch.circuit.graph import Circuit
 from helm_tpu_torch.fhe import csprng, modring, pbs, security
 from helm_tpu_torch.io import csv_io
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "helm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]

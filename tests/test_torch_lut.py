@@ -27,6 +27,7 @@ from helm_tpu_torch.fhe.lwe import client_key_from_reference
 from helm_tpu_torch.fhe.ntt import to_host
 from helm_tpu_torch.fhe.server_key import server_key_from_reference
 from helm_tpu_torch.io import csv_io
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 SETS = {"g1": (RP.TEST_PARAMS_LUT, 61), "k2_mb2": (RP.TEST_NOISY_LUT_K2, 62)}
 

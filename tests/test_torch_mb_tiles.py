@@ -49,6 +49,7 @@ from helm_tpu_torch.fhe.modring import get_tables, primes_for
 from helm_tpu_torch.fhe.ntt import to_host, words
 from helm_tpu_torch.fhe.server_key import server_key_from_reference
 from helm_tpu_torch.ops import mb_pbs, ts_pbs
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 #: the tiny k=3 grouping-1 set of chip_smoke.py's phase k2
 RK3_G1 = dataclasses.replace(RP.TEST_PARAMS_K3, name="test_tiny_k3_g1", grouping=1)

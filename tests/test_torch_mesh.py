@@ -36,6 +36,7 @@ from helm_tpu_torch.fhe.ntt import to_host, words
 from helm_tpu_torch.fhe.server_key import server_key_from_reference
 from helm_tpu_torch.parallel import mesh as M
 from helm_tpu_torch.parallel.distributed import parse_multihost_flag
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NETS = os.path.join(REPO, "benchmarks", "netlists")
@@ -46,17 +47,6 @@ SETS = {
     "noisy_mb": (RP.TEST_NOISY_GATES_MB, 7),
     "noisy_lut": (RP.TEST_NOISY_LUT_K2, 7),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: these tests run many small plain-version ops,
-    which a pool of threads slows down (alone, and more so beside other
-    test processes on the same cores)."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(old)
 
 
 @pytest.fixture(scope="module")

@@ -12,6 +12,7 @@ import os
 
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from helm_tpu import params as RP
 from helm_tpu.circuit.verilog import parse_verilog as ref_parse_verilog
@@ -21,27 +22,14 @@ from helm_tpu.fhe import lwe as ref_lwe
 from helm_tpu.fhe.server_key import gen_server_key as ref_gen_server_key
 from helm_tpu_torch import ArithEngine
 from helm_tpu_torch.circuit.verilog import parse_verilog
-import pytest
-import torch
-
 from helm_tpu_torch.engines import radix
 from helm_tpu_torch.fhe.lwe import client_key_from_reference
 from helm_tpu_torch.fhe.ntt import to_host
 from helm_tpu_torch.fhe.server_key import server_key_from_reference
 from helm_tpu_torch.parallel import mesh as M
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 NETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmarks", "netlists")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: these tests run many small plain-version ops,
-    which a pool of threads slows down (alone, and more so beside other
-    test processes on the same cores)."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(old)
 
 
 def test_sharded_arith_equals_the_reference(monkeypatch):

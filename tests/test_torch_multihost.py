@@ -26,6 +26,7 @@ from helm_tpu_torch.circuit.graph import Circuit
 from helm_tpu_torch.circuit.verilog import read_verilog_file
 from helm_tpu_torch.io import csv_io
 from helm_tpu_torch.parallel import distributed
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -28,6 +28,7 @@ from helm_tpu_torch.circuit.verilog import read_verilog_file
 from helm_tpu_torch.fhe import lwe
 from helm_tpu_torch.io import csv_io, native_loader
 from helm_tpu_torch.ops import build
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

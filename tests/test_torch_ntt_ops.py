@@ -14,6 +14,7 @@ from helm_tpu.fhe import ntt as ref_ntt
 from helm_tpu.fhe import ops as ref_ops
 from helm_tpu.fhe.modring import NUM_PRIMES, get_tables
 from helm_tpu_torch.fhe import ntt, ops
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 SEED = 20261016
 

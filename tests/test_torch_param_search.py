@@ -20,23 +20,14 @@ import os
 import sys
 
 import pytest
-import torch
 
 from helm_tpu_torch import params as P
 from helm_tpu_torch.ops import mb_pbs
 from helm_tpu_torch.tools import param_search as ps
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_LO, N_HI = 700, 713
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread, as the other in-process port tests."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(old)
 
 
 @pytest.fixture(scope="module")

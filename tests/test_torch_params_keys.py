@@ -19,6 +19,7 @@ from helm_tpu.fhe import lwe as ref_lwe
 from helm_tpu.fhe.server_key import gen_server_key as ref_gen_server_key
 from helm_tpu_torch import params as P
 from helm_tpu_torch.fhe import keys, lwe, server_key
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 
 def test_same_set_names():

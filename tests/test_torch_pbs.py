@@ -23,6 +23,7 @@ from helm_tpu_torch.fhe import pbs
 from helm_tpu_torch.fhe.ntt import to_host, words
 from helm_tpu_torch.fhe.server_key import server_key_from_reference
 from helm_tpu_torch.ops import mb_pbs, sb_pbs
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 SETS = {
     "k3": (P.TEST_PARAMS_K3, 31),

@@ -20,6 +20,7 @@ from helm_tpu.circuit.verilog import parse_verilog as ref_parse
 from helm_tpu_torch import preprocessor as port
 from helm_tpu_torch.circuit.graph import Circuit
 from helm_tpu_torch.circuit.verilog import parse_verilog
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -34,19 +34,10 @@ from jax.experimental.pallas import tpu as pltpu
 from helm_tpu.ops.mxu_pbs import _expand8
 from helm_tpu_torch.ops import probes
 from helm_tpu_torch.tools import expand8_probe, liveset_harness, ptw_probe, splat_repro
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: many small plain-version ops run slower on a
-    pool of threads beside the other test processes."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(old)
 
 
 def _tool(name):

@@ -33,6 +33,7 @@ from helm_tpu_torch.fhe.ntt import to_host, words
 from helm_tpu_torch.fhe.server_key import server_key_from_reference
 from helm_tpu_torch.ops import mb_pbs, ps_pbs, sb_pbs
 from helm_tpu_torch.ops import ts_pbs as ts_pbs_port
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 #: each prime set with a ring size that uses it
 PRIME_SETS = {"PRIMES_512": (PRIMES_512, 512), "PRIMES_1024": (PRIMES_1024, 1024), "PRIMES": (PRIMES, 2048)}

@@ -19,6 +19,7 @@ from helm_tpu.io import csv_io
 from helm_tpu_torch import params as P
 from helm_tpu_torch.ops import mb_pbs, ts_pbs
 from helm_tpu_torch.serve import _stable_inputs, main
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 ADDER = "benchmarks/netlists/2-bit-adder.v"
 WIRES = ("a[0]", "a[1]", "b[0]", "b[1]", "cin")

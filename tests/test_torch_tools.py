@@ -37,7 +37,7 @@ from helm_tpu_torch import params as P
 from helm_tpu_torch import refbound
 from helm_tpu_torch.circuit.graph import Circuit
 from helm_tpu_torch.circuit.verilog import read_verilog_file
-from helm_tpu_torch.fhe import security
+from helm_tpu_torch.fhe import pbs, security
 from helm_tpu_torch.fhe.lwe import client_key_from_reference
 from helm_tpu_torch.fhe.server_key import server_key_from_reference
 from helm_tpu_torch.tools import aes_bench, chi2_bench, family_bench, noise_decompose, noise_validate
@@ -46,18 +46,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NETS = os.path.join(REPO, "benchmarks", "netlists")
 sys.path.insert(0, os.path.join(REPO, "benchmarks"))
 import gen_circuits  # noqa: E402
+from _port_threads import compute_share  # noqa: F401,E402 (autouse)
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: these tests run many small plain-version ops,
-    which a pool of threads slows down beside the other test processes."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(old)
 
 
 # -- refbound (arith half) and security.report ---------------------------------
@@ -187,7 +178,8 @@ def noisy_keys():
     p = RP.TEST_NOISY_GATES_MB
     ck = ref_lwe.keygen(p, 11)
     sk = ref_gen_server_key(ck)
-    return ck, sk, client_key_from_reference(ck), server_key_from_reference(sk)
+    psk = server_key_from_reference(sk)
+    return ck, sk, client_key_from_reference(ck), psk, pbs.DeviceServerKey.from_host(psk, CPU)
 
 
 def _ref_errors(ck, sk, samples, G, seed, stages):
@@ -224,14 +216,11 @@ def _ref_errors(ck, sk, samples, G, seed, stages):
 
 
 def test_noise_validate_errors_equal_reference(noisy_keys):
-    ck, sk, pck, psk = noisy_keys
+    ck, sk, pck, psk, dsk = noisy_keys
     samples, G, seed = 96, 32, 5
     ref = _ref_errors(_rng(ck, 99), sk, samples, G, seed, stages=False)
     # batch by batch, the port's loop gives the same errors word for word
-    from helm_tpu_torch.fhe import pbs
-
     rng = np.random.default_rng(seed)
-    dsk = pbs.DeviceServerKey.from_host(psk, CPU)
     key = _rng(pck, 99)
     for want in ref:
         np.testing.assert_array_equal(noise_validate.errors(key, dsk, rng, G), want)
@@ -251,13 +240,10 @@ def test_noise_validate_errors_equal_reference(noisy_keys):
 
 
 def test_noise_decompose_errors_equal_reference(noisy_keys):
-    ck, sk, pck, psk = noisy_keys
+    ck, sk, pck, psk, dsk = noisy_keys
     samples, G, seed = 64, 32, 6
     ref = _ref_errors(_rng(ck, 98), sk, samples, G, seed, stages=True)
-    from helm_tpu_torch.fhe import pbs
-
     rng = np.random.default_rng(seed)
-    dsk = pbs.DeviceServerKey.from_host(psk, CPU)
     key = _rng(pck, 98)
     for want_pbs, want_out in ref:
         got_pbs, got_out = noise_decompose.stage_errors(key, dsk, rng, G)
